@@ -1,0 +1,333 @@
+'''
+Exhaustive scan step of the port (counterpart of
+kvarq_tpu/engine/pallas_scan.py): bank tensors, the candidate screen and
+the exact scoring of one batch of reads.
+
+- :py:func:`device_arrays` / :py:func:`state_from_numpy` build the
+  :py:class:`BankState` (im2col'd one-hot bank ``K``, padded bank bytes,
+  ``qmeta``, ``tseg``) from the shared :py:class:`~kvarq_tpu.engine.match_xla._Bank`
+  or from the JAX package's numpy bank state.
+- :py:func:`cand_counts` is the candidate screen: on a CUDA tensor it
+  launches the hand-written kernel csrc/cand_screen.cu (the port of the
+  TPU kernel ``_cand_kernel``), on a CPU tensor its plain version
+  :py:func:`cand_counts_ref`.
+- :py:func:`scan_step_banked` is one device step in dense mode (exact
+  scoring of every read) or gathered mode (screen, compaction into
+  ``gather_k`` slots, exact scoring of the candidates, full-batch
+  fallback on overflow).
+
+Exact scoring keeps the JAX package's quantities but not its layout:
+``w``/``ov`` from the shared f32 closed form, then the per-template sums
+and the coverage are accumulated from the non-zero ``(read, shift)``
+pairs with integer ``index_add_`` -- the same counts as the
+``read5.T @ w`` contraction plus diagonal fold, exact in int64 with no
+``[Lpad*5, Q]`` intermediate and no reduced-precision product.
+'''
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from kvarq_tpu.engine import encode
+from kvarq_tpu.engine.pallas_scan import (
+    BIG_RL_THRESHOLD, ROW_D, ROW_DM, ROW_OVC, ROW_SEQL, ROW_VALID,
+    bank_channels, pack_qmeta, pack_tseg)
+from kvarq_tpu_torch.engine import native_cuda
+
+# shift columns are padded to a multiple of the kernel's column tile
+QALIGN = 128
+# bank bytes the kernel must never match (codes >= nch, padding)
+BANK_SENTINEL = 0xFE
+# largest Lpad whose match counts fp16 holds exactly (integers <= 2048)
+FP16_MAX_LPAD = 2048
+
+
+@dataclasses.dataclass
+class BankState:
+    ''' device tensors of one template bank at one read padding ``Lpad`` '''
+    Lpad: int
+    G: int            # bank length (templates plus gaps)
+    Qp: int           # padded shift columns
+    T: int            # templates; seqhits slot T collects the gap columns
+    nch: int          # one-hot channels of K (bank_channels)
+    K: torch.Tensor       # [Lpad*nch, Qp] one-hot im2col'd bank
+    bank: torch.Tensor    # uint8 [4*n] bank bytes for the kernel
+    qmeta: torch.Tensor   # int32 [8, Qp] (pack_qmeta rows)
+    tseg: torch.Tensor    # int32 [Qp] column -> template, T for gaps
+
+
+def _match_dtype(device, Lpad):
+    ''' operand type of the one-hot match product: fp16 on the card (every
+        partial sum is an integer <= Lpad, exact in fp16 up to 2048 whatever
+        the accumulation precision; bf16 would stop at 256), f32 on the
+        CPU '''
+    if torch.device(device).type == 'cuda' and Lpad <= FP16_MAX_LPAD:
+        return torch.float16
+    return torch.float32
+
+
+def _padded_bank(codes, Lpad, Qp):
+    ''' bpad[i] = bank[i - (Lpad-1)], template junk outside the bank, for
+        i in [0, Qp + Lpad - 1): column q of K reads bpad[q:q + Lpad] '''
+    bpad = np.full(Qp + Lpad - 1, encode.CODE_TMPL_JUNK, dtype=np.uint8)
+    bpad[Lpad - 1:Lpad - 1 + len(codes)] = codes
+    return bpad
+
+
+def _kernel_bytes(bpad, nch):
+    ''' bank bytes as the kernel reads them: codes >= nch (and the tail
+        padding to whole 32-bit words) become BANK_SENTINEL '''
+    out = np.full(-(-len(bpad) // 4) * 4, BANK_SENTINEL, dtype=np.uint8)
+    out[:len(bpad)] = np.where(bpad < nch, bpad, BANK_SENTINEL)
+    return out
+
+
+def one_hot(codes, nch, dtype):
+    ''' one-hot by comparison: codes >= nch (junk, and N when nch is 4)
+        give zero rows, as jax.nn.one_hot does (F.one_hot would raise) '''
+    return (codes[..., None].long()
+            == torch.arange(nch, device=codes.device)).to(dtype)
+
+
+def build_K(bpad, Lpad, Qp, nch, dtype):
+    ''' im2col'd one-hot bank K[(j, c), q] = onehot(bpad[q + j])[c] from
+        the padded bank codes (a tensor) '''
+    win = bpad.unfold(0, Lpad, 1)[:Qp]                    # [Qp, Lpad]
+    return one_hot(win, nch, dtype).permute(1, 2, 0).reshape(Lpad * nch, Qp)
+
+
+def _state(bpad, qmeta, tseg, Lpad, G, T, nch, device, K=None):
+    device = torch.device(device)
+    dtype = _match_dtype(device, Lpad)
+    Qp = qmeta.shape[1]
+    if K is None:
+        K = build_K(torch.from_numpy(bpad).to(device), Lpad, Qp, nch, dtype)
+    else:
+        K = torch.from_numpy(np.ascontiguousarray(K)).to(device, dtype)
+    return BankState(
+        Lpad=Lpad, G=G, Qp=Qp, T=T, nch=nch, K=K.contiguous(),
+        bank=torch.from_numpy(_kernel_bytes(bpad, nch)).to(device),
+        qmeta=torch.from_numpy(np.ascontiguousarray(qmeta, np.int32))
+        .to(device),
+        tseg=torch.from_numpy(np.ascontiguousarray(tseg, np.int32))
+        .to(device))
+
+
+def device_arrays(bank, T, device):
+    ''' :py:class:`BankState` of a shared ``_Bank`` on ``device``; shift
+        columns padded to a multiple of :py:data:`QALIGN` '''
+    qmeta = pack_qmeta(bank, QALIGN)
+    Qp = qmeta.shape[1]
+    return _state(_padded_bank(bank.codes, bank.Lpad, Qp), qmeta,
+                  pack_tseg(bank, T, QALIGN, Qp), bank.Lpad, bank.G, T,
+                  bank_channels(bank.codes), device)
+
+
+def state_from_numpy(K, qmeta, tseg, Lpad, G, T, device):
+    ''' :py:class:`BankState` from the JAX package's bank state as numpy
+        arrays: ``K`` from ``pallas_scan.build_K_np`` cast to float32,
+        ``qmeta`` from ``pack_qmeta``, ``tseg`` from ``pack_tseg``.  The
+        kernel's bank bytes are read back out of K (rows j=0 and
+        j=Lpad-1 hold every padded bank position). '''
+    K = np.asarray(K, dtype=np.float32)
+    nch = K.shape[0] // Lpad
+    Qp = K.shape[1]
+    K3 = K.reshape(Lpad, nch, Qp)
+    oh = np.concatenate([K3[0], K3[Lpad - 1][:, Qp - Lpad + 1:]], axis=1)
+    bpad = np.where(oh.any(axis=0), oh.argmax(axis=0),
+                    encode.CODE_TMPL_JUNK).astype(np.uint8)
+    return _state(bpad, qmeta, tseg, Lpad, G, T, nch, device, K=K)
+
+
+def match_counts(codes, K, nch):
+    ''' [B, Qp] matching-base counts: one-hot reads @ K (a plain product,
+        left to cuBLAS as the JAX package leaves it to XLA) '''
+    flat = one_hot(codes, nch, K.dtype).reshape(codes.shape[0], -1)
+    return flat @ K
+
+
+# --- candidate screen ---------------------------------------------------------
+
+def _check_nch(state, nch):
+    if nch != state.nch:
+        raise ValueError('nch=%d but the bank state was built with %d '
+                         'channels' % (nch, state.nch))
+
+
+def cand_counts_ref(codes, rl, state, maxerrors, minoverlap, nch):
+    ''' plain PyTorch version of :py:func:`cand_counts`: per-read count of
+        shift columns passing the sound candidate screen of
+        ``kvarq_tpu.engine.pallas_scan._cand_kernel`` (its module
+        docstring derives it), in int32 '''
+    _check_nch(state, nch)
+    m = match_counts(codes, state.K, nch).to(torch.int32)     # [B, Qp]
+    qm = state.qmeta
+    rl = rl.to(torch.int32)[:, None]
+    e = maxerrors
+    rlmo_e = torch.where(rl > 0, torch.clamp(rl, max=minoverlap),
+                         BIG_RL_THRESHOLD) - e
+    seql_e = torch.where(qm[ROW_VALID] > 0, qm[ROW_SEQL] - e,
+                         BIG_RL_THRESHOLD)
+    ov_e = torch.minimum(rl + (qm[ROW_DM] - e), qm[ROW_OVC] - e)
+    thr = torch.maximum(ov_e, torch.minimum(rlmo_e, seql_e[None, :]))
+    return (m >= thr).sum(dim=1, dtype=torch.int32)
+
+
+def _cand_lib():
+    lib = native_cuda.load('cand_screen.cu')
+    fn = lib.kvq_cand_screen
+    if fn.argtypes is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, vp, i, vp, vp, i, i, i, i, i, i, vp]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def cand_counts(codes, rl, state, maxerrors, minoverlap, nch):
+    '''
+    per-read candidate-column counts ``[B] int32`` -- equal to
+    ``match_cand_call(...)(...).sum(axis=0)`` of the JAX package (read b
+    is a candidate iff its count is > 0).
+
+    :param codes: uint8 ``[B, Lpad]`` read codes
+    :param rl: int32 ``[B]`` read lengths (0 for padding rows)
+
+    On a CPU tensor this is :py:func:`cand_counts_ref`.  On a CUDA tensor
+    it launches csrc/cand_screen.cu on the current stream, or raises;
+    ``cand_counts.launches`` counts those launches.
+    '''
+    if codes.device.type == 'cpu':
+        return cand_counts_ref(codes, rl, state, maxerrors, minoverlap, nch)
+    if codes.device.type != 'cuda':
+        raise ValueError('cand_counts: unsupported device %s' % codes.device)
+    _check_nch(state, nch)
+    B, Lpad = codes.shape
+    for name, t, dtype, shape in (
+            ('codes', codes, torch.uint8, (B, state.Lpad)),
+            ('rl', rl, torch.int32, (B,)),
+            ('bank', state.bank, torch.uint8, state.bank.shape),
+            ('qmeta', state.qmeta, torch.int32, (8, state.Qp))):
+        if t.device != codes.device or t.dtype != dtype \
+                or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+            raise ValueError(
+                'cand_counts: %s must be a contiguous %s tensor of shape %s '
+                'on %s (got %s %s on %s)' % (
+                    name, dtype, tuple(shape), codes.device, t.dtype,
+                    tuple(t.shape), t.device))
+    if Lpad % 4 or codes.data_ptr() % 4 or state.bank.numel() % 4:
+        raise ValueError('cand_counts: Lpad, the codes pointer and the bank '
+                         'length must be multiples of 4')
+    out = torch.zeros(B, dtype=torch.int32, device=codes.device)
+    if B == 0:
+        return out
+    # the launch goes to the current device's context: make it codes'
+    with torch.cuda.device(codes.device):
+        err = _cand_lib()(
+            codes.data_ptr(), rl.data_ptr(), state.bank.data_ptr(),
+            state.bank.numel() // 4, state.qmeta.data_ptr(), out.data_ptr(),
+            B, Lpad, state.Qp, nch, maxerrors, minoverlap,
+            torch.cuda.current_stream(codes.device).cuda_stream)
+    if err:
+        raise RuntimeError('cand_screen kernel launch failed: CUDA error %d'
+                           % err)
+    cand_counts.launches += 1
+    return out
+
+
+cand_counts.launches = 0
+
+
+# --- exact scoring ------------------------------------------------------------
+
+def _coverage(codes, b, q, w, state):
+    ''' basecount[c, g] = sum over pairs (b, q) with weight w of the read
+        bases codes[b, j] == c at g = q - (Lpad-1) + j -- the diagonal fold
+        of read5.T @ w, as integer scatter-adds '''
+    Lpad, G = state.Lpad, state.G
+    bc = torch.zeros(encode.NBASE * G, dtype=torch.int64, device=codes.device)
+    j = torch.arange(Lpad, device=codes.device)
+    step = max(1, (1 << 24) // Lpad)      # bounds the [pairs, Lpad] temps
+    for s in range(0, len(b), step):
+        g = q[s:s + step, None] - (Lpad - 1) + j
+        c = codes[b[s:s + step]].long()
+        ok = (c < encode.NBASE) & (g >= 0) & (g < G)
+        bc.index_add_(0, (c * G + g)[ok],
+                      w[s:s + step, None].expand_as(g)[ok])
+    return bc.view(encode.NBASE, G)
+
+
+def score(codes, rl, state, maxerrors, minoverlap, rows=None):
+    ''' exact scoring of every row: ``(basecount [5, G], seqhits [T+1],
+        seqbasehits [T+1])``, all int64.  ``rows`` bounds the reads scored
+        per pass, and with it the ``[rows, Qp]`` temporaries (None: all
+        at once). '''
+    B = codes.shape[0]
+    if not rows or rows >= B:
+        return _score(codes, rl, state, maxerrors, minoverlap)
+    total = None
+    for s in range(0, B, rows):
+        part = _score(codes[s:s + rows], rl[s:s + rows], state, maxerrors,
+                      minoverlap)
+        total = part if total is None else [t.add_(p) for t, p in
+                                            zip(total, part)]
+    return tuple(total)
+
+
+def _score(codes, rl, state, maxerrors, minoverlap):
+    from kvarq_tpu_torch.engine.tensor_scan import mode_weights
+    qm = state.qmeta
+    m = match_counts(codes, state.K, state.nch)
+    w, ov = mode_weights(m, rl[:, None], qm[ROW_D:ROW_D + 1],
+                         qm[ROW_SEQL:ROW_SEQL + 1], qm[ROW_VALID:ROW_VALID + 1],
+                         maxerrors, minoverlap)
+    del m
+    b, q = torch.nonzero(w, as_tuple=True)
+    wv = w[b, q].long()
+    ovv = ov[b, q].long()
+    del w, ov
+    seg = state.tseg[q].long()
+    zeros = torch.zeros(state.T + 1, dtype=torch.int64, device=codes.device)
+    seqhits = zeros.clone().index_add_(0, seg, wv)
+    seqbasehits = zeros.index_add_(0, seg, wv * ovv)
+    return _coverage(codes, b, q, wv, state), seqhits, seqbasehits
+
+
+def nonzero_static(mask, size):
+    ''' ``jnp.nonzero(mask, size=size, fill_value=0)``: the first ``size``
+        indices of the set entries, padded with 0 '''
+    idx = torch.nonzero(mask).flatten()[:size]
+    out = torch.zeros(size, dtype=torch.int64, device=mask.device)
+    out[:len(idx)] = idx
+    return out
+
+
+def scan_step_banked(codes, rl, state, maxerrors, minoverlap, gather_k=768,
+                     rows=None):
+    '''
+    one scan step over ``codes [B, Lpad] uint8``, ``rl [B] int32``:
+    :returns: ``(basecount [5, G], seqhits [T+1], seqbasehits [T+1],
+        count)`` -- int64 tensors plus the number of candidate reads (0 in
+        dense mode), which drives TensorScanner's adaptive ``gather_k``.
+        ``rows`` bounds the reads per exact-scoring pass (:py:func:`score`).
+
+    Dense mode (``gather_k`` 0, or not below B) scores every read.
+    Otherwise the candidate screen flags reads, up to ``gather_k`` of them
+    are compacted (``nonzero`` with fill 0; rows past the count are masked
+    to empty reads) and scored exactly; more than ``gather_k`` candidates
+    fall back to scoring the whole batch.  The count is synchronised to
+    the host to choose the branch.
+    '''
+    B = codes.shape[0]
+    if not gather_k or gather_k >= B:
+        return (*score(codes, rl, state, maxerrors, minoverlap, rows), 0)
+    hit = cand_counts(codes, rl, state, maxerrors, minoverlap, state.nch) > 0
+    count = int(hit.sum())
+    if count > gather_k:
+        return (*score(codes, rl, state, maxerrors, minoverlap, rows), count)
+    idx = nonzero_static(hit, gather_k)
+    fill = torch.arange(gather_k, device=codes.device) < count
+    codes_g = torch.where(fill[:, None], codes[idx], encode.CODE_READ_JUNK)
+    rl_g = rl[idx] * fill
+    return (*score(codes_g, rl_g, state, maxerrors, minoverlap, rows), count)

@@ -1,0 +1,159 @@
+'''
+End to end through the port: the Analyser and ``python -m
+kvarq_tpu_torch.cli scan`` on the MTBC fixtures give the reference's
+golden calls and the same coverages/analyses/stats as kvarq_tpu's numpy
+hit path; the package runs with jax absent.
+'''
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from kvarq_tpu import analyse as janalyse
+from kvarq_tpu import engine as jengine
+from kvarq_tpu.fastq import Fastq
+from kvarq_tpu.log import set_warning
+from kvarq_tpu.testsuites import discover_testsuites, load_testsuites
+from kvarq_tpu_torch import analyse, cli
+from kvarq_tpu_torch import engine as tengine
+
+HERE = os.path.abspath(os.path.dirname(__file__))
+ROOT = os.path.dirname(HERE)
+TESTSUITES = os.path.join(ROOT, 'testsuites')
+FASTQ1 = os.path.join(HERE, 'fastqs', 'L3_N1014_hits_5k.fastq')
+FASTQ2 = os.path.join(HERE, 'fastqs', 'N0116_1_hits_1k.fastq')
+
+needs_genome = pytest.mark.skipif(
+    not os.path.exists(os.path.join(TESTSUITES, 'MTBC',
+                                    'MTB_ancestor_reference.bases')),
+    reason='run tools/reconstruct_genome.py first')
+
+
+@pytest.fixture(autouse=True)
+def reset_torch_engine_config():
+    ''' every test starts from the port engine's built-in defaults '''
+    tengine.config(maxerrors=0, minoverlap=20, minreadlength=10,
+                   nthreads=1, Amin='!', Azero='!', device='cpu',
+                   sieve=os.environ.get('KVARQ_SIEVE', 'auto'),
+                   batchsize=int(os.environ.get('KVARQ_BATCHSIZE', '16384')))
+    yield
+
+
+def _mtbc():
+    set_warning()
+    return load_testsuites(discover_testsuites([TESTSUITES]), ['MTBC'])
+
+
+@needs_genome
+@pytest.mark.parametrize('sieve', ['auto', 'off'])
+def test_analyser_matches_numpy_hit_path(sieve, monkeypatch):
+    ''' unsieved, gather_k is pinned below the fixture's read count so the
+        scan runs the candidate screen on the full MTBC bank '''
+    if sieve == 'off':
+        monkeypatch.setenv('KVARQ_GATHER_K', '64')
+    suites = _mtbc()
+    fastq = Fastq(FASTQ2, quiet=True)
+    params = dict(maxerrors=2, minoverlap=25, minreadlength=25,
+                  Amin=fastq.Q2A(13), Azero=fastq.Azero)
+
+    jengine.config(backend='numpy', **params)
+    ref = janalyse.Analyser()
+    ref.scan(fastq, suites, keep_hits=True)
+    ref.update_testsuites()
+
+    tengine.config(sieve=sieve, **params)
+    got = analyse.Analyser()
+    got.scan(fastq, suites)
+    got.update_testsuites()
+
+    assert got.hits is None
+    assert got.config == tengine.get_config()
+    for name in ref.coverages:
+        assert ref.coverages[name].serialize() == \
+            got.coverages[name].serialize(), name
+    assert got.stats == ref.stats
+    assert got.results == ref.results
+    e1, e2 = ref.encode(), got.encode()
+    for k in ('analyses', 'stats', 'coverages'):
+        assert e1[k] == e2[k]
+    assert e2['info']['config'] == tengine.get_config()
+
+
+def test_analyser_keep_hits_not_ported():
+    with pytest.raises(NotImplementedError, match='not yet ported'):
+        analyse.Analyser().scan(Fastq(FASTQ2, quiet=True), {},
+                                keep_hits=True)
+
+
+def _scan_illustrate(capsys, tmp_path, fastq, params=()):
+    out = str(tmp_path / 'out.json')
+    cli.main(['-q', '-t', TESTSUITES, 'scan', '-l', 'MTBC', '-f',
+              '--backend', 'cpu', *params, fastq, out])
+    capsys.readouterr()
+    cli.main(['-q', '-t', TESTSUITES, 'illustrate', '-r', out])
+    return capsys.readouterr().out
+
+
+@needs_genome
+def test_cli_golden(capsys, tmp_path):
+    ''' golden end-to-end (mirror of tests/test_cli.py::test_scan_illustrate) '''
+    out = _scan_illustrate(capsys, tmp_path, FASTQ1,
+                           ['--variant', 'Illumina 1.8+'])
+    for call in [
+            'Streptomycin resistance::SNP781687AG=rpsL.K43R',
+            'Ethambutol resistance::SNP4247431GT=embB.M306I',
+            'Isoniazid resistance [2155168CG=katG.S315T]',
+            'Rifampicin resistance (RRDR) '
+            '[761139CG=rpoB.H445D 761140AG=rpoB.H445R]',
+            'remark: low coverage (RRDR below 10x)',
+            'lineage 3']:
+        assert call in out, call
+
+    out = _scan_illustrate(capsys, tmp_path, FASTQ2)
+    for call in ['Streptomycin resistance::SNP781687AG=rpsL.K43R',
+                 'remark: low coverage (RRDR below 10x)', 'lineage 2']:
+        assert call in out, call
+
+
+@pytest.mark.parametrize('args', [
+    ['-H'], ['-x', 'hits.fastq'], ['--mesh', 'auto'],
+    ['--backend', 'xla'], ['--backend', 'pallas']])
+def test_cli_refuses_unported_options(args, tmp_path, capsys):
+    with pytest.raises(SystemExit) as e:
+        cli.main(['scan', '-l', 'MTBC', '-f', *args, FASTQ2,
+                  str(tmp_path / 'out.json')])
+    assert e.value.code != 0
+    assert 'not yet ported' in capsys.readouterr().err
+
+
+def test_runs_without_jax():
+    ''' the port imports and scans with jax unimportable (the machine with
+        the card has none) '''
+    code = '''
+import json, sys
+sys.modules['jax'] = None
+sys.modules['ml_dtypes'] = None
+import kvarq_tpu_torch.cli
+from kvarq_tpu_torch import engine
+engine.config(device='cpu', maxerrors=1, minoverlap=10, minreadlength=5)
+ret = engine.countseqs(sys.argv[1], ['CACCGGTGTAGGCAAGTCGTAACAAGG', 'CCC'])
+assert not [m for m in sys.modules if m.startswith(('jax.', 'ml_dtypes.'))]
+print(json.dumps({'stats': ret['stats'],
+                  'basecounts': [b.tolist() for b in ret['basecounts']]}))
+'''
+    fastq = os.path.join(HERE, 'fastqs', 'test_engine.fastq')
+    proc = subprocess.run([sys.executable, '-c', code, fastq], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+
+    tengine.config(maxerrors=1, minoverlap=10, minreadlength=5)
+    want = tengine.countseqs(fastq, ['CACCGGTGTAGGCAAGTCGTAACAAGG', 'CCC'])
+    assert got['stats'] == json.loads(json.dumps(want['stats']))
+    for g, w in zip(got['basecounts'], want['basecounts']):
+        np.testing.assert_array_equal(np.asarray(g), w)
+    assert sum(want['stats']['nseqhits']) > 0

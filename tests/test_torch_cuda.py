@@ -1,0 +1,128 @@
+'''
+kvarq_tpu_torch on the card: the CUDA candidate-screen kernel against its
+plain PyTorch version, and the scan step and scanner on CUDA against the
+same code on the CPU.  Skipped without an NVIDIA GPU (a CUDA kernel has no
+CPU mode); this file imports no jax, so it runs where jax is absent:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda
+'''
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from kvarq_tpu.engine import reader
+from kvarq_tpu_torch.engine import pallas_scan as tps
+from kvarq_tpu_torch.engine import tensor_scan as tts
+
+from _torch_cases import case
+
+pytestmark = pytest.mark.cuda
+FASTQ = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'fastqs',
+                     'test_engine.fastq')
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (CUDA kernel, no CPU mode)')
+    return torch.device('cuda')
+
+
+@pytest.mark.parametrize('nch', [4, 5])
+@pytest.mark.parametrize('Lpad,B', [(64, 77), (192, 130)])
+def test_cand_screen_kernel_matches_ref(cuda, nch, Lpad, B):
+    seqs, codes, rl, bank = case(5 + Lpad, nch, B=B, Lpad=Lpad, nseq=9)
+    state = tps.device_arrays(bank, len(seqs), cuda)
+    c, r = torch.from_numpy(codes).to(cuda), torch.from_numpy(rl).to(cuda)
+    for e, mo in ((0, 25), (2, 25), (3, 8)):
+        before = tps.cand_counts.launches
+        got = tps.cand_counts(c, r, state, e, mo, nch)
+        torch.cuda.synchronize()
+        assert tps.cand_counts.launches == before + 1
+        want = tps.cand_counts_ref(c, r, state, e, mo, nch)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+        assert (want > 0).any()
+
+
+def test_cand_counts_on_a_device_that_is_not_current(cuda):
+    ''' tensors on cuda:1 while cuda:0 is current launch on cuda:1 '''
+    if torch.cuda.device_count() < 2:
+        pytest.skip('needs two NVIDIA GPUs')
+    dev1 = torch.device('cuda', 1)
+    seqs, codes, rl, bank = case(11, 4, B=77, Lpad=64, nseq=9)
+    state = tps.device_arrays(bank, len(seqs), dev1)
+    c, r = torch.from_numpy(codes).to(dev1), torch.from_numpy(rl).to(dev1)
+    with torch.cuda.device(0):
+        got = tps.cand_counts(c, r, state, 2, 25, 4)
+    torch.cuda.synchronize(dev1)
+    want = tps.cand_counts_ref(torch.from_numpy(codes), torch.from_numpy(rl),
+                               tps.device_arrays(bank, len(seqs), 'cpu'),
+                               2, 25, 4)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert (want > 0).any()
+
+
+def test_score_rows_from_card_memory(cuda):
+    ''' the scoring-pass bound follows the card's memory, not what the
+        allocator holds at the moment '''
+    rows = tts.score_rows(cuda, 40064)
+    held = torch.empty(1 << 30, dtype=torch.uint8, device=cuda)
+    assert tts.score_rows(cuda, 40064) == rows
+    del held
+    assert rows % 512 == 0 and rows * 40064 * tts.SCORE_BYTES_PER_ELEM \
+        <= torch.cuda.get_device_properties(cuda).total_memory
+
+
+def test_cand_counts_rejects_bad_input(cuda):
+    seqs, codes, rl, bank = case(1, 4)
+    state = tps.device_arrays(bank, len(seqs), cuda)
+    c, r = torch.from_numpy(codes).to(cuda), torch.from_numpy(rl).to(cuda)
+    for args in ((c.to(torch.int32), r), (c, r.long()), (c[:, :60], r),
+                 (c.t().contiguous().t(), r), (c, r.cpu())):
+        with pytest.raises(ValueError):
+            tps.cand_counts(*args, state, 0, 25, 4)
+    with pytest.raises(ValueError):
+        tps.cand_counts(c, r, state, 0, 25, 5)
+
+
+@pytest.mark.parametrize('gather_k', [0, 8, 1])
+def test_scan_step_cuda_matches_cpu(cuda, gather_k):
+    seqs, codes, rl, bank = case(42, 4, minoverlap=10)
+    want = tps.scan_step_banked(
+        torch.from_numpy(codes), torch.from_numpy(rl),
+        tps.device_arrays(bank, len(seqs), 'cpu'), 1, 10, gather_k)
+    got = tps.scan_step_banked(
+        torch.from_numpy(codes).to(cuda), torch.from_numpy(rl).to(cuda),
+        tps.device_arrays(bank, len(seqs), cuda), 1, 10, gather_k)
+    for w, g in zip(want[:3], got[:3]):
+        np.testing.assert_array_equal(w.numpy(), g.cpu().numpy())
+    assert want[3] == got[3]
+
+
+@pytest.mark.parametrize('rows', [None, 3])
+def test_tensor_scanner_cuda_matches_cpu(cuda, rows, monkeypatch):
+    ''' on the card a step is the whole batch (one K1 launch per batch),
+        also when exact scoring runs in passes of ``rows`` reads '''
+    if rows:
+        monkeypatch.setattr(tts, 'score_rows', lambda device, Qp: rows)
+    seqs = ['CACCGGTGTAGGCAAGTCGTAACAAGG', 'TTTTTTTTTTGGGGGGGGGG', 'CCC']
+    out = []
+    for dev in ('cpu', cuda):
+        sc = tts.TensorScanner(seqs, 1, 5, dev)
+        sc.gather_k, sc._gather_auto = 4, False
+        stats = reader.ReaderStats()
+        before = tps.cand_counts.launches
+        nbatches = 0
+        for batch in reader.batches([FASTQ], ord('!'), 5, stats):
+            sc.scan_batch(batch)
+            nbatches += 1
+        if dev == cuda:
+            assert tps.cand_counts.launches - before == nbatches
+        out.append((sc.coverages(), sc.seqhits, sc.seqbasehits))
+    for w, g in zip(out[0][0], out[1][0]):
+        np.testing.assert_array_equal(w, g)
+    np.testing.assert_array_equal(out[0][1], out[1][1])
+    np.testing.assert_array_equal(out[0][2], out[1][2])

@@ -1,0 +1,161 @@
+'''
+kvarq_tpu_torch.engine.pallas_scan against kvarq_tpu.engine.pallas_scan:
+bank state, the candidate screen (plain version on the CPU, the CUDA
+kernel where a card is present) and the scan step in dense, gathered and
+overflow-fallback modes.  Every quantity is an integer count, so every
+comparison is exact equality.
+'''
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kvarq_tpu.engine import pallas_scan as jps
+from kvarq_tpu.engine.tensor_scan import (
+    bank_device_arrays, build_bank, scan_step_fn)
+from kvarq_tpu_torch import engine as tengine
+from kvarq_tpu_torch.engine import pallas_scan as tps
+
+from _torch_cases import case as _case
+from test_pallas_scan import _random_case
+
+TB, TQ = 8, 128
+
+
+@pytest.fixture(autouse=True)
+def reset_torch_engine_config():
+    ''' every test starts from the port engine's built-in defaults '''
+    tengine.config(maxerrors=0, minoverlap=20, minreadlength=10,
+                   nthreads=1, Amin='!', Azero='!', device='cpu',
+                   sieve=os.environ.get('KVARQ_SIEVE', 'auto'),
+                   batchsize=int(os.environ.get('KVARQ_BATCHSIZE', '16384')))
+    yield
+
+
+def _jax_state(bank, T):
+    qmeta = jps.pack_qmeta(bank, TQ)
+    Qp = qmeta.shape[1]
+    tseg = jps.pack_tseg(bank, T, TQ, Qp)
+    K = jps.build_K_np(bank.codes, bank.Lpad, Qp)
+    return K, qmeta, tseg
+
+
+@pytest.mark.parametrize('nch', [4, 5])
+@pytest.mark.parametrize('maxerrors,minoverlap', [(0, 25), (2, 25), (3, 8)])
+def test_cand_counts_ref_matches_pallas(maxerrors, minoverlap, nch):
+    ''' the plain candidate screen equals the Pallas kernel (interpret
+        mode) summed over its [8*nQ, B] partials '''
+    seqs, codes, rl, bank = _case(40 + maxerrors, nch, minoverlap=minoverlap)
+    Lpad, B, T = bank.Lpad, len(codes), len(seqs)
+    K, qmeta, tseg = _jax_state(bank, T)
+    call = jps.match_cand_call(Lpad, qmeta.shape[1], B, maxerrors, minoverlap,
+                               TB=TB, TQ=TQ, interpret=True, nch=nch)
+    read_flat = jax.nn.one_hot(jnp.asarray(codes), nch,
+                               dtype=jnp.bfloat16).reshape(B, Lpad * nch)
+    rl2d = jnp.broadcast_to(jnp.asarray(rl)[:, None], (B, 128))
+    want = np.asarray(call(read_flat, rl2d, jnp.asarray(K),
+                           jnp.asarray(qmeta))).sum(axis=0)
+
+    state = tps.state_from_numpy(K.astype(np.float32), qmeta, tseg, Lpad,
+                                 bank.G, T, 'cpu')
+    got = tps.cand_counts(torch.from_numpy(codes), torch.from_numpy(rl),
+                          state, maxerrors, minoverlap, nch)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want > 0).any() and (want == 0).any()
+    own = tps.device_arrays(bank, T, 'cpu')
+    np.testing.assert_array_equal(
+        tps.cand_counts_ref(torch.from_numpy(codes), torch.from_numpy(rl),
+                            own, maxerrors, minoverlap, nch).numpy(), want)
+
+
+@pytest.mark.parametrize('nch', [4, 5])
+def test_state_from_numpy_matches_device_arrays(nch):
+    seqs, _, _, bank = _case(3, nch)
+    T = len(seqs)
+    K, qmeta, tseg = _jax_state(bank, T)
+    a = tps.state_from_numpy(K.astype(np.float32), qmeta, tseg, bank.Lpad,
+                             bank.G, T, 'cpu')
+    b = tps.device_arrays(bank, T, 'cpu')
+    for f in ('Lpad', 'G', 'Qp', 'T', 'nch'):
+        assert getattr(a, f) == getattr(b, f), f
+    assert a.nch == nch and a.Qp == qmeta.shape[1]
+    for f in ('K', 'bank', 'qmeta', 'tseg'):
+        np.testing.assert_array_equal(getattr(a, f).numpy(),
+                                      getattr(b, f).numpy(), err_msg=f)
+    np.testing.assert_array_equal(b.K.numpy(), K.astype(np.float32))
+
+
+@pytest.mark.parametrize('gather_k,seed', [(0, 13), (8, 42), (1, 7)],
+                         ids=['dense', 'gathered', 'fallback'])
+def test_scan_step_banked_matches_jax(gather_k, seed):
+    ''' dense, gathered (candidates fit gather_k) and overflow-fallback
+        steps equal the Pallas step (interpret mode) and the XLA twin '''
+    rng = np.random.RandomState(seed)
+    Lpad, B, e, mo = 64, 16, 1, 10
+    seqs, codes, rl, _ = _random_case(rng, nseq=4, B=B, Lpad=Lpad)
+    T = len(seqs)
+    bank = build_bank(seqs, Lpad, mo)
+
+    xla = scan_step_fn(Lpad, bank.G, T, e, mo, dtype_name='float32')(
+        jnp.asarray(codes), jnp.asarray(rl),
+        **bank_device_arrays(bank, dtype=jnp.float32))
+    pstep = jps.scan_step(Lpad, bank, T, e, mo, B, gather_k=gather_k,
+                          interpret=True, TB=TB, TQ=TQ, with_count=True)
+    pal = pstep(jnp.asarray(codes), jnp.asarray(rl),
+                **jps.device_arrays(bank, TQ=TQ))
+
+    state = tps.device_arrays(bank, T, 'cpu')
+    bc, sh, sbh, count = tps.scan_step_banked(
+        torch.from_numpy(codes), torch.from_numpy(rl), state, e, mo,
+        gather_k)
+    got = (bc.numpy(), sh.numpy(), sbh.numpy())
+    for name, x, p, g in zip(('basecount', 'seqhits', 'seqbasehits'),
+                             xla, pal, got):
+        np.testing.assert_array_equal(np.asarray(x), g, err_msg=name)
+        np.testing.assert_array_equal(np.asarray(p), g, err_msg=name)
+    assert count == int(np.asarray(pal[3]))
+    if gather_k == 8:
+        assert 0 < count <= 8          # the gathered branch ran
+    if gather_k == 1:
+        assert count > 1               # the fallback branch ran
+    assert np.asarray(xla[1]).sum() > 0
+
+
+@pytest.mark.parametrize('gather_k', [0, 1])
+@pytest.mark.parametrize('rows', [1, 5, 16])
+def test_scoring_in_passes_matches_one_pass(gather_k, rows):
+    ''' a rows bound on exact scoring (dense and fallback steps) splits
+        the work into passes and changes no count '''
+    rng = np.random.RandomState(3)
+    seqs, codes, rl, _ = _random_case(rng, nseq=4, B=16, Lpad=64)
+    state = tps.device_arrays(build_bank(seqs, 64, 10), len(seqs), 'cpu')
+    args = (torch.from_numpy(codes), torch.from_numpy(rl), state, 1, 10,
+            gather_k)
+    want = tps.scan_step_banked(*args)
+    got = tps.scan_step_banked(*args, rows=rows)
+    for w, g in zip(want[:3], got[:3]):
+        np.testing.assert_array_equal(w.numpy(), g.numpy())
+    assert want[3] == got[3]
+    assert want[1].sum() > 0
+
+
+def test_nonzero_static():
+    mask = torch.tensor([False, True, False, True, True])
+    np.testing.assert_array_equal(tps.nonzero_static(mask, 2).numpy(), [1, 3])
+    np.testing.assert_array_equal(tps.nonzero_static(mask, 5).numpy(),
+                                  np.asarray(jnp.nonzero(
+                                      jnp.asarray(mask.numpy()), size=5,
+                                      fill_value=0)[0]))
+
+
+def test_one_hot_drops_out_of_range_codes():
+    codes = torch.tensor([[0, 3, 4, 5, 6]], dtype=torch.uint8)
+    for nch in (4, 5):
+        np.testing.assert_array_equal(
+            tps.one_hot(codes, nch, torch.float32).numpy(),
+            np.asarray(jax.nn.one_hot(jnp.asarray(codes.numpy()), nch)))
