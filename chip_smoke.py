@@ -2,18 +2,20 @@
 '''
 Smoke run of kvarq_tpu_torch on one NVIDIA GPU: builds the CUDA kernel
 from this checkout, checks it against its plain PyTorch version at the
-main-path shape, drives ``kvarq scan``'s coverage path over the 2M-read
-bench corpus with and without the k-mer sieve, gates the result against
-the numpy oracle and runs the CLI on the golden MTBC fixtures.
+main-path shape, drives ``kvarq scan``'s coverage path (``countseqs``)
+and its hit-list path (``findseqs``, ``scan -H/-x``) over the 2M-read
+bench corpus with and without the k-mer sieve and over a hit-dense
+corpus, gates the results against the numpy oracle and against each
+other, and runs the CLI on the golden MTBC fixtures.
 
     python3 chip_smoke.py
 
 Every phase prints one line; any failure exits non-zero before the
 result lines.  The ``[trace]`` lines time one scan per sieve mode under
 torch.profiler (kernel time on the card, its busy share, the top
-kernels).  The last two lines are the kernel table and
-``{"ok": true, "device": {...}}``.  Work files go to
-build/kvarq_tpu_torch/smoke/.
+kernels).  The last two lines are the kernel table (with the kernel's
+launch count on each path) and ``{"ok": true, "device": {...}}``.  Work
+files go to build/kvarq_tpu_torch/smoke/.
 '''
 
 import json
@@ -28,6 +30,9 @@ HERE = os.path.abspath(os.path.dirname(__file__))
 WORK = os.path.join(HERE, 'build', 'kvarq_tpu_torch', 'smoke')
 N_READS = 2000000
 READLEN = 101
+# the hit-dense corpus: half the reads planted from template loci
+DENSE_READS = 262144
+DENSE_PLANT = 0.5
 MAIN_B = 16384      # reads per batch, as the engine's default batchsize
 # CLI defaults (kvarq_tpu/config.py): e=2, o=25, r=25, Q13 on Sanger
 SCAN = dict(maxerrors=2, minoverlap=25, minreadlength=25, nthreads=8,
@@ -81,15 +86,25 @@ def run(cmd, env=None, timeout=300):
     return proc.stdout
 
 
-def corpus(seqs_windows):
-    ''' the bench corpus (bench.generate_fastq, seed 20260817) and its
-        first 8192 reads '''
+def corpus(seqs_windows, n_reads=N_READS, plant=None):
+    ''' a bench corpus (bench.generate_fastq, seed 20260817; ``plant``
+        overrides bench.PLANT_FRAC for the call) and its first 8192
+        reads '''
     import bench
     os.makedirs(WORK, exist_ok=True)
-    path = os.path.join(WORK, 'mtbc_%dx%d.fastq' % (N_READS, READLEN))
-    prefix = os.path.join(WORK, 'mtbc_prefix_8192.fastq')
+    tag = 'mtbc_%dx%d%s' % (n_reads, READLEN,
+                            '_p%g' % plant if plant is not None else '')
+    path = os.path.join(WORK, tag + '.fastq')
+    prefix = os.path.join(WORK, tag + '_prefix_8192.fastq')
     if not os.path.exists(path):
-        bench.generate_fastq(path + '.tmp', seqs_windows, N_READS, READLEN)
+        saved = bench.PLANT_FRAC
+        if plant is not None:
+            bench.PLANT_FRAC = plant
+        try:
+            bench.generate_fastq(path + '.tmp', seqs_windows, n_reads,
+                                 READLEN)
+        finally:
+            bench.PLANT_FRAC = saved
         os.replace(path + '.tmp', path)
     with open(path) as f, open(prefix, 'w') as g:
         for _ in range(4 * 8192):
@@ -97,16 +112,17 @@ def corpus(seqs_windows):
     return path, prefix
 
 
-def traced_scan(engine, path, seqs):
-    ''' one countseqs under torch.profiler: (wall s, kernel s on the card,
-        K1 s, [(kernel, ms)] of the five longest) '''
+def traced_scan(scan, path, seqs):
+    ''' one scan (``countseqs`` or ``findseqs``) under torch.profiler:
+        (wall s, kernel s on the card, K1 s, [(kernel, ms)] of the five
+        longest) '''
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        engine.countseqs(path, seqs)
+        scan(path, seqs)
         torch.cuda.synchronize()
         wall = time.time() - t0
     dev = sorted((e for e in prof.key_averages()
@@ -130,6 +146,69 @@ def oracle_gate(ret, prefix, seqs, found):
                                                   found=found)
     except SystemExit as e:
         raise SmokeFailure(str(e))
+
+
+class Timed:
+    ''' a callable's wrapper that sums the wall seconds spent in it '''
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.seconds = 0.0
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.time()
+        try:
+            return self.fn(*args, **kwargs)
+        finally:
+            self.seconds += time.time() - t0
+
+
+def timed_findseqs(engine, path, seqs):
+    ''' one findseqs with the seconds in the matcher (screen, compaction,
+        extraction, triplet readback: its result is on the host) and in
+        the host's ``_emit``; resets the peak device memory first.
+        :returns: (result, wall s, matcher s, _emit s) '''
+    import torch
+    emit, make = Timed(engine._emit), engine._make_matcher
+    matchers = []
+
+    def make_timed(seqs_):
+        m = make(seqs_)
+        m.match_batch = Timed(m.match_batch)
+        matchers.append(m.match_batch)
+        return m
+
+    engine._emit, engine._make_matcher = emit, make_timed
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        found = engine.findseqs(path, seqs)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        engine._emit, engine._make_matcher = emit.fn, make
+    return found, wall, sum(m.seconds for m in matchers), emit.seconds
+
+
+def hits_gate(found, counted, seqs, what):
+    ''' a findseqs result replays into the countseqs result of the same
+        input: equal stats, and bench.oracle_basecounts of the hit list
+        equals the basecounts '''
+    import bench
+    check(found['stats'] == counted['stats'],
+          '%s: findseqs and countseqs stats differ' % what)
+    for t, (got, want) in enumerate(zip(bench.oracle_basecounts(found, seqs),
+                                        counted['basecounts'])):
+        check(np.array_equal(got, want), '%s: basecounts[%d] of the hit list '
+              'differ from countseqs' % (what, t))
+
+
+def numpy_oracle(path, seqs):
+    ''' kvarq_tpu's byte-exact numpy findseqs, configured like the scan '''
+    from kvarq_tpu import engine as oracle_engine
+    oracle_engine.config(backend='numpy', sieve='off', **SCAN)
+    return oracle_engine.findseqs(path, seqs)
 
 
 def main():
@@ -312,7 +391,7 @@ def main():
     # wall time includes the profiler's own cost)
     for sieve in ('off', 'auto'):
         engine.config(device='cuda', sieve=sieve, **SCAN)
-        wall, busy, k1, top = traced_scan(engine, path, seqs)
+        wall, busy, k1, top = traced_scan(engine.countseqs, path, seqs)
         if busy == 0:
             say('trace', 'sieve=%s: wall %.3fs; kernel time not measured '
                 '(the profiler saw no device activity)' % (sieve, wall))
@@ -322,14 +401,86 @@ def main():
                 sieve, wall, busy, 100 * busy / wall, k1,
                 '; '.join('%s %.1f ms' % kv for kv in top)))
 
-    # (e) CLI golden runs against kvarq_tpu's numpy hit path
+    # (g) the hit path (findseqs) over the same corpus: every batch through
+    # K1, sieve off and on
+    by_path = {'countseqs sieve=off': launches}
+    hit = {}
+    for sieve in ('off', 'auto'):
+        engine.config(device='cuda', sieve=sieve, **SCAN)
+        tps.cand_counts.launches = 0
+        got, dt, t_match, t_emit = timed_findseqs(engine, path, seqs)
+        n = tps.cand_counts.launches
+        check(n > 0, 'findseqs sieve=%s never launched K1' % sieve)
+        by_path['findseqs sieve=%s' % ('on' if sieve == 'auto' else 'off')] = n
+        nrec = got['stats']['records_parsed']
+        check(nrec == N_READS, 'parsed %d of %d records' % (nrec, N_READS))
+        hit[sieve] = got
+        say('g', 'findseqs sieve=%s: %d reads in %.3fs = %.1f reads/s, %d '
+            'hits; matcher %.3fs, _emit %.3fs; peak device memory %.2f GB, '
+            'K1 launches %d' % (
+                sieve, nrec, dt, nrec / dt, len(got['hits']), t_match,
+                t_emit, torch.cuda.max_memory_allocated() / 1e9, n))
+    check(hit['off'] == hit['auto'], 'findseqs sieve on/off hit streams '
+          '(hits, hitseqs, stats) differ')
+    check(len(hit['off']['hits']) > 0, 'no hits in corpus')
+    hits_gate(hit['off'], results['off'], seqs, 'corpus')
+    for sieve in ('off', 'auto'):
+        engine.config(device='cuda', sieve=sieve, **SCAN)
+        check(engine.findseqs(prefix, seqs) == found, 'findseqs sieve=%s '
+              'differs from the numpy oracle on the first 8192 reads' % sieve)
+    say('g', 'hit streams sieve on and off identical (%d hits); replayed, '
+        'they equal the countseqs basecounts and stats of (c); on the first '
+        '8192 reads both equal the numpy oracle tuple for tuple (%d hits)'
+        % (len(hit['off']['hits']), len(found['hits'])))
+    engine.config(device='cuda', sieve='off', **SCAN)
+    wall, busy, k1, top = traced_scan(engine.findseqs, path, seqs)
+    say('trace', 'findseqs sieve=off: wall %.3fs, kernel time on the card '
+        '%.3fs (%.1f%% busy), K1 %.3fs; longest: %s' % (
+            wall, busy, 100 * busy / wall, k1,
+            '; '.join('%s %.1f ms' % kv for kv in top)))
+    del hit
+
+    # (g') hit-dense: half the reads planted, sieve off (compaction keeps
+    # about half of each batch)
+    t0 = time.time()
+    dpath, dprefix = corpus(windows, DENSE_READS, DENSE_PLANT)
+    say('setup', 'hit-dense corpus %s ready in %.1fs' % (
+        os.path.basename(dpath), time.time() - t0))
+    engine.config(device='cuda', sieve='off', **SCAN)
+    tps.cand_counts.launches = 0
+    got, dt, t_match, t_emit = timed_findseqs(engine, dpath, seqs)
+    n = tps.cand_counts.launches
+    check(n > 0, 'hit-dense findseqs never launched K1')
+    by_path['findseqs hit-dense sieve=off'] = n
+    nrec = got['stats']['records_parsed']
+    check(nrec == DENSE_READS, 'parsed %d of %d hit-dense records'
+          % (nrec, DENSE_READS))
+    say("g'", 'findseqs hit-dense sieve=off: %d reads in %.3fs = %.1f '
+        'reads/s, %d hits; matcher %.3fs, _emit %.3fs; peak device memory '
+        '%.2f GB, K1 launches %d' % (
+            nrec, dt, nrec / dt, len(got['hits']), t_match, t_emit,
+            torch.cuda.max_memory_allocated() / 1e9, n))
+    hits_gate(got, engine.countseqs(dpath, seqs), seqs, 'hit-dense corpus')
+    want = numpy_oracle(dprefix, seqs)
+    check(engine.findseqs(dprefix, seqs) == want, 'hit-dense findseqs differs '
+          'from the numpy oracle on the first 8192 reads')
+    say("g'", 'replayed, the hit list equals the countseqs basecounts and '
+        'stats; on the first 8192 reads it equals the numpy oracle tuple for '
+        'tuple (%d hits)' % len(want['hits']))
+    del got, want
+
+    # (e) CLI golden runs against kvarq_tpu's numpy hit path: the coverage
+    # path, then -H -x, then one --profile trace
     for name, (extra, calls) in GOLDEN.items():
         fq = os.path.join('tests', 'fastqs', name)
         refj = os.path.join(WORK, name + '.ref.json')
+        refx = os.path.join(WORK, name + '.ref.hits.fastq')
         run([sys.executable, '-m', 'kvarq_tpu.cli', '-q', '-t', 'testsuites',
-             'scan', '-f', '-l', 'MTBC', '--backend', 'numpy', '-H', *extra,
-             fq, refj])
+             'scan', '-f', '-l', 'MTBC', '--backend', 'numpy', '-H',
+             '-x', refx, *extra, fq, refj])
         ref = json.load(open(refj))
+        with open(refx, 'rb') as f:
+            ref_records = f.read()
         for sieve in ('off', 'auto'):
             outj = os.path.join(WORK, '%s.%s.json' % (name, sieve))
             run([sys.executable, '-m', 'kvarq_tpu_torch.cli', '-q', '-t',
@@ -346,6 +497,41 @@ def main():
                       'numpy hit path' % (name, sieve, key))
         say('e', '%s: golden calls present, coverages/analyses/stats equal '
             'the numpy hit path (sieve off and on)' % name)
+        for sieve in ('off', 'auto'):
+            outj = os.path.join(WORK, '%s.%s.hits.json' % (name, sieve))
+            outx = os.path.join(WORK, '%s.%s.hits.fastq' % (name, sieve))
+            run([sys.executable, '-m', 'kvarq_tpu_torch.cli', '-q', '-t',
+                 'testsuites', 'scan', '-f', '-l', 'MTBC', '-H', '-x', outx,
+                 *extra, fq, outj], env={'KVARQ_SIEVE': sieve})
+            out = json.load(open(outj))
+            for key in ('coverages', 'analyses', 'stats', 'hits', 'hitseqs'):
+                check(out[key] == ref[key], '%s -H sieve=%s: %s differ from '
+                      'the numpy hit path' % (name, sieve, key))
+            with open(outx, 'rb') as f:
+                check(f.read() == ref_records, '%s -x sieve=%s: extracted '
+                      'records differ from the numpy hit path' % (name, sieve))
+        say('e', '%s -H -x: json (coverages, analyses, stats, %d hits) and '
+            'the %d bytes of extracted records equal the numpy hit path '
+            '(sieve off and on)' % (name, len(ref['hits']), len(ref_records)))
+
+    fq = os.path.join('tests', 'fastqs', 'N0116_1_hits_1k.fastq')
+    outj = os.path.join(WORK, 'profile.json')
+    tdir = os.path.join(WORK, 'profile_trace')
+    run([sys.executable, '-m', 'kvarq_tpu_torch.cli', '-q', '-t', 'testsuites',
+         'scan', '-f', '-l', 'MTBC', '-H', '--profile', tdir, fq, outj],
+        env={'KVARQ_SIEVE': 'off'})
+    from kvarq_tpu_torch.profiling import TRACE_FILE
+    phases = json.load(open(outj))['info'].get('phases', {})
+    check(set(phases) == {'scan', 'analyse', 'total'},
+          '--profile wrote phases %r' % sorted(phases))
+    with open(os.path.join(tdir, TRACE_FILE)) as f:
+        names = [str(ev.get('name')) for ev in json.load(f)['traceEvents']]
+    nk1 = sum('cand_screen_kernel' in n for n in names)
+    check(nk1 > 0, '--profile trace holds no cand_screen_kernel event')
+    say('e', '--profile (-H, sieve off): info.phases %s; trace of %d events, '
+        '%d of them cand_screen_kernel' % (
+            ' '.join('%s=%.3fs' % kv for kv in sorted(phases.items())),
+            len(names), nk1))
 
     # (f) summary
     say('f', 'peak device memory of this process %.2f GB; total %.1fs' % (
@@ -354,8 +540,8 @@ def main():
         'name': 'cand_screen', 'route': 'cuda',
         'source': 'kvarq_tpu_torch/csrc/cand_screen.cu',
         'replaces': 'kvarq_tpu/engine/pallas_scan.py:151',
-        'launches': launches, 'max_abs_err': err, 'ms': k_ms,
-        'plain_ms': ref_ms}]}), flush=True)
+        'launches': launches, 'launches_by_path': by_path,
+        'max_abs_err': err, 'ms': k_ms, 'plain_ms': ref_ms}]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,
         'count': torch.cuda.device_count()}}), flush=True)

@@ -1,27 +1,30 @@
 '''
 :py:class:`Analyser` of the port: ``kvarq_tpu.analyse.Analyser`` with a
-``scan`` that runs :py:func:`kvarq_tpu_torch.engine.countseqs`.  Testsuite
-analysis and the result format are inherited unchanged.
+``scan`` that runs :py:func:`kvarq_tpu_torch.engine.findseqs` or
+:py:func:`kvarq_tpu_torch.engine.countseqs`.  Replaying hits into the
+coverages, testsuite analysis, hit extraction and the result format are
+inherited unchanged.
 '''
 
 import time
 
 from kvarq_tpu import analyse
 from kvarq_tpu.engine.tensor_scan import fold_into_coverage
+from kvarq_tpu.log import lo
 from kvarq_tpu_torch import engine
 
 
 class Analyser(analyse.Analyser):
 
-    def scan(self, fastq, testsuites, do_reverse=True, keep_hits=False):
+    def scan(self, fastq, testsuites, do_reverse=True, keep_hits=True):
         ''' scan ``fastq`` against every template's plus (and minus)
-            sequence and fill ``.coverages`` from the port's device base
-            counts.  ``self.config`` is the port engine's configuration,
-            which the result json records. '''
-        if keep_hits:
-            raise NotImplementedError(
-                'the hit-list scan (keep_hits=True, kvarq scan -H/-x) is not '
-                'yet ported to kvarq_tpu_torch')
+            sequence and fill ``.coverages``, as kvarq_tpu's ``scan``.
+            With ``keep_hits`` (the default, as in kvarq_tpu) the port's
+            :py:func:`~kvarq_tpu_torch.engine.findseqs` keeps the hit list
+            (``.hits``/``.hitseqs``, for ``-H``/``-x``); without it
+            :py:func:`~kvarq_tpu_torch.engine.countseqs` accumulates the
+            base counts on the device.  ``self.config`` is the port
+            engine's configuration, which the result json records. '''
         self._record_fastq(fastq)
         self.testsuites = testsuites
         self.coverages = self.load_coverages(testsuites,
@@ -33,6 +36,15 @@ class Analyser(analyse.Analyser):
             seqs += [c.minus_seq.bases for c in self.coverages.values()]
 
         started = time.time()
+        if keep_hits:
+            ret = engine.findseqs(self.fastq.filenames(), seqs)
+            lo.debug('found %d hits' % len(ret['hits']))
+            self.stats = ret['stats']
+            self.hits = ret['hits']
+            self.hitseqs = ret['hitseqs']
+            self.scantime = time.time() - started
+            self.update_coverages()
+            return
         ret = engine.countseqs(self.fastq.filenames(), seqs)
         self.stats = ret['stats']
         self.hits = self.hitseqs = None

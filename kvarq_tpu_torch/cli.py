@@ -7,9 +7,10 @@ runs the port's engine on a CUDA device (``--backend cuda``, the default)
 or on the CPU (``--backend cpu``).  Subcommands that read result files
 (``illustrate``, ``show``, ``update``, ``summarize``, ``info``,
 ``version``, ``explorer``) are reused as they are; those that scan
-through kvarq_tpu's device engine (``batch``, ``gui``) and the scan
-options of paths not yet ported (``-H``, ``-x``, ``--mesh``,
-``--profile``) exit with a message.
+through kvarq_tpu's device engine (``batch``, ``gui``) and the
+multi-device scan option ``--mesh`` are not yet ported and exit with a
+message.  ``-H``/``-x`` run the hit-list scan; ``--profile`` records
+phase times and a torch.profiler trace (kvarq_tpu_torch.profiling).
 '''
 
 import argparse
@@ -18,9 +19,11 @@ import time
 
 from kvarq_tpu import cli as kcli
 from kvarq_tpu.fastq import Fastq, FastqFileFormatException
-from kvarq_tpu.log import appendlog, lo, set_debug, set_warning
+from kvarq_tpu.log import (appendlog, format_traceback, lo, set_debug,
+                           set_warning)
 from kvarq_tpu.util import ProgressBar, get_help_path
 from kvarq_tpu_torch import analyse, device, engine
+from kvarq_tpu_torch.profiling import ScanProfiler
 
 BACKENDS = ('cuda', 'cpu')
 
@@ -34,7 +37,23 @@ def _refuse(what):
 class ScanSession(kcli.ScanSession):
 
     ''' kvarq_tpu's scan session (worker thread plus progress and <CTRL-C>
-        handling), polling the port's engine '''
+        handling), polling the port's engine; the worker runs the scan
+        inside ``prof.trace()`` (torch.profiler records the thread that
+        starts it) '''
+
+    def __init__(self, analyser, fastq, testsuites, args, prof):
+        super().__init__(analyser, fastq, testsuites, args)
+        self.prof = prof
+
+    def _work(self):
+        # the scan's own errors are caught by kvarq_tpu's _work; this
+        # catches the trace's
+        try:
+            with self.prof.trace():
+                super()._work()
+        except Exception as e:
+            self.error = e
+            self.error_tb = format_traceback(sys.exc_info())
 
     def run(self):
         ''' :returns: final ``engine.stats()`` (partial when aborted) '''
@@ -74,12 +93,8 @@ class ScanSession(kcli.ScanSession):
 
 
 def cmd_scan(args):
-    for value, what in ((args.hits, 'scan -H/--hits'),
-                        (args.extract_hits, 'scan -x/--extract_hits'),
-                        (args.mesh, 'scan --mesh'),
-                        (args.profile, 'scan --profile')):
-        if value:
-            _refuse(what)
+    if args.mesh:
+        _refuse('scan --mesh')
     backend = args.backend or 'cuda'
     if backend not in BACKENDS:
         _refuse('--backend %s (the port runs %s)'
@@ -113,6 +128,8 @@ def cmd_scan(args):
 
     if not args.force:
         kcli._refuse_overwrite(args.json)
+        if args.extract_hits:
+            kcli._refuse_overwrite(args.extract_hits)
 
     lo.info('scanning {} ({}) on {}...'.format(
         ', '.join(fastq.filenames()),
@@ -120,8 +137,13 @@ def cmd_scan(args):
                   for size in fastq.filesizes()), backend))
     started = time.time()
 
+    prof = ScanProfiler(args.profile, backend)
+    if args.profile:
+        prof.start()
+
     analyser = analyse.Analyser()
-    stats = ScanSession(analyser, fastq, testsuites, args).run()
+    with prof.phase('scan'):
+        stats = ScanSession(analyser, fastq, testsuites, args, prof).run()
 
     lo.info('performed scanning of %.2f%% (%smb/%smb, %d records) '
             'in %.3f seconds'
@@ -129,8 +151,15 @@ def cmd_scan(args):
                stats['total'] // 1024 ** 2, stats['records_parsed'],
                time.time() - started))
 
-    analyser.update_testsuites()
-    kcli._write_result(analyser.encode(), args.json)
+    with prof.phase('analyse'):
+        analyser.update_testsuites()
+    if args.profile:
+        analyser.phases = prof.stop()
+        lo.info('phases: %s' % ' '.join(
+            '%s=%.3fs' % kv for kv in sorted(prof.phases.items())))
+    kcli._write_result(analyser.encode(hits=args.hits), args.json)
+    if args.extract_hits:
+        analyser.extract_hits(args.extract_hits)
 
 
 def _not_ported(name):
@@ -165,6 +194,11 @@ def build_parser():
                     kwargs, choices=list(BACKENDS) + list(kwargs['choices']),
                     help='compute device of the port: cuda (default) or '
                          'cpu')
+            elif '--profile' in names:
+                kwargs = dict(
+                    kwargs, help='record per-phase wall times into the '
+                    'result json (info.phases) and write a torch.profiler '
+                    'trace of the host and the card to DIR')
             sub.add_argument(*names, **kwargs)
     return parser
 

@@ -1,23 +1,29 @@
 '''
-Scan-engine API of the port (counterpart of kvarq_tpu/engine/__init__.py,
-coverage half): :py:func:`config` / :py:func:`get_config`,
-:py:func:`stats`, :py:func:`stop`, :py:func:`install_sigint_counter` and
-:py:func:`countseqs`.  The module keeps its own configuration and scan
-state; ``kvarq_tpu.engine`` is not touched.
+Scan-engine API of the port (counterpart of kvarq_tpu/engine/__init__.py):
+:py:func:`config` / :py:func:`get_config`, :py:func:`stats`,
+:py:func:`stop`, :py:func:`install_sigint_counter`, the coverage scan
+:py:func:`countseqs` and the hit-list scan :py:func:`findseqs` (with
+kvarq_tpu's :py:data:`Hit`).  The module keeps its own configuration and
+scan state; ``kvarq_tpu.engine`` is not touched.
 
 The host input pipeline (native C++ reader, k-mer sieve) is shared with
-kvarq_tpu by import; the device step is
-:py:class:`kvarq_tpu_torch.engine.tensor_scan.TensorScanner`.  The hit
-path (``findseqs``) is not ported yet.
+kvarq_tpu by import.  The device steps are
+:py:class:`kvarq_tpu_torch.engine.tensor_scan.TensorScanner` (coverage)
+and the matchers of :py:mod:`kvarq_tpu_torch.engine.match_pallas` (on
+the card: candidate screen, then exact extraction) and
+:py:mod:`kvarq_tpu_torch.engine.match_xla` (on the CPU: exact extraction
+alone).
 '''
 
-import functools
+import contextlib
 import os
 import threading
 
 import numpy as np
 
-from kvarq_tpu.engine import reader
+# the JAX package's namedtuple (jax-free): Analyser.decode and result json
+# equality rely on the one type
+from kvarq_tpu.engine import Hit, reader  # noqa: F401
 from kvarq_tpu.log import lo
 
 # engine configuration (defaults match workhorse.c:71-76)
@@ -109,17 +115,14 @@ def stats():
     }
 
 
-@functools.lru_cache(maxsize=4)
-def _cached_sieve(seqs_key, maxerrors, minoverlap, minreadlength):
-    from kvarq_tpu.engine.sieve import KmerSieve
-    return KmerSieve.build(list(seqs_key), maxerrors, minoverlap,
-                           minreadlength)
-
-
 def _make_sieve(seqs):
     mode = _extra_config['sieve']
     if mode in (False, 'off', '0', 'no'):
         return None
+    # kvarq_tpu's cache of built sieves (a pure function of its
+    # arguments): one table of up to 5^12 entries per configuration,
+    # shared by both packages in one process
+    from kvarq_tpu.engine import _cached_sieve
     sieve = _cached_sieve(tuple(seqs), _config['maxerrors'],
                           _config['minoverlap'], _config['minreadlength'])
     if sieve is None and mode != 'auto':
@@ -127,36 +130,56 @@ def _make_sieve(seqs):
     return sieve
 
 
+@contextlib.contextmanager
+def _scan(name, nseqs):
+    ''' one scan at a time: resets the scan state that :py:func:`stats`
+        reports, for ``nseqs`` templates '''
+    global _running, _stop, _sigints, _stats, _seqhits, _seqbasehits
+    with _lock:
+        if _running:
+            raise RuntimeError('%s() already running!' % name)
+        _running = True
+    _stop = False
+    _sigints = 0
+    try:
+        _seqhits = np.zeros(nseqs, dtype=np.int64)
+        _seqbasehits = np.zeros(nseqs, dtype=np.int64)
+        _stats = reader.ReaderStats()
+        yield
+    finally:
+        _running = False
+
+
+def _batches(fnames, sieve):
+    ''' the shared reader's batches under the current configuration;
+        malformed input raises FastqFileFormatException '''
+    from kvarq_tpu.fastq import FastqFileFormatException
+    try:
+        yield from reader.prefetch(reader.batches(
+            fnames, ord(_config['Amin']), _config['minreadlength'], _stats,
+            batchsize=_extra_config['batchsize'],
+            stop_check=lambda: _stop, sieve=sieve,
+            nthreads=_config['nthreads']))
+    except reader.FastqFormatError as e:
+        raise FastqFileFormatException(str(e))
+
+
 def countseqs(fname, seqs):
     '''
     tensorized scan: accumulates per-template base counts on the device
-    (no hit list).  Statistics are those of ``kvarq_tpu.engine.findseqs``;
+    (no hit list).  Statistics are those of :py:func:`findseqs`;
     :py:func:`kvarq_tpu.engine.tensor_scan.fold_into_coverage` maps the
     base counts onto :py:class:`~kvarq_tpu.analyse.Coverage` objects.
 
     :returns: dict with ``basecounts`` (list of [5, S] int64 arrays in
         scanned-strand coordinates, parallel to ``seqs``) and ``stats``
     '''
-    global _running, _stop, _sigints, _stats, _seqhits, _seqbasehits
-
-    from kvarq_tpu.fastq import FastqFileFormatException
     from kvarq_tpu_torch import device
     from kvarq_tpu_torch.engine.tensor_scan import TensorScanner
 
-    with _lock:
-        if _running:
-            raise RuntimeError('countseqs() already running!')
-        _running = True
-    _stop = False
-    _sigints = 0
-
-    try:
-        fnames = [fname] if isinstance(fname, str) else list(fname)
-        seqs = list(seqs)
-        _seqhits = np.zeros(len(seqs), dtype=np.int64)
-        _seqbasehits = np.zeros(len(seqs), dtype=np.int64)
-        _stats = reader.ReaderStats()
-
+    fnames = [fname] if isinstance(fname, str) else list(fname)
+    seqs = list(seqs)
+    with _scan('countseqs', len(seqs)):
         scanner = TensorScanner(
             seqs, _config['maxerrors'], _config['minoverlap'],
             device.select(_extra_config['device'])) if seqs else None
@@ -165,20 +188,13 @@ def countseqs(fname, seqs):
             # sieve-fed batches hold only candidate reads: start dense
             scanner.assume_dense()
 
-        try:
-            for batch in reader.prefetch(reader.batches(
-                    fnames, ord(_config['Amin']), _config['minreadlength'],
-                    _stats, batchsize=_extra_config['batchsize'],
-                    stop_check=lambda: _stop, sieve=sieve,
-                    nthreads=_config['nthreads'])):
-                if scanner is None:
-                    continue
-                scanner.scan_batch(batch)
-                # live counters for stats() polling during the scan
-                _seqhits[:] = scanner.seqhits
-                _seqbasehits[:] = scanner.seqbasehits
-        except reader.FastqFormatError as e:
-            raise FastqFileFormatException(str(e))
+        for batch in _batches(fnames, sieve):
+            if scanner is None:
+                continue
+            scanner.scan_batch(batch)
+            # live counters for stats() polling during the scan
+            _seqhits[:] = scanner.seqhits
+            _seqbasehits[:] = scanner.seqbasehits
 
         if scanner is not None:
             scanner.finalize()
@@ -191,5 +207,111 @@ def countseqs(fname, seqs):
             'basecounts': basecounts,
             'stats': stats(),
         }
-    finally:
-        _running = False
+
+
+def _make_matcher(seqs):
+    ''' the screening matcher on a CUDA device (every batch through the
+        candidate screen), exact extraction alone on the CPU '''
+    from kvarq_tpu_torch import device
+    dev = device.select(_extra_config['device'])
+    if dev.type == 'cuda':
+        from kvarq_tpu_torch.engine.match_pallas import PallasMatcher
+        return PallasMatcher(seqs, _config['maxerrors'],
+                             _config['minoverlap'], dev)
+    from kvarq_tpu_torch.engine.match_xla import XlaMatcher
+    return XlaMatcher(seqs, _config['maxerrors'], _config['minoverlap'], dev)
+
+
+def findseqs(fname, seqs):
+    '''
+    scan fastq file(s) for template base sequences (the counterpart of
+    ``kvarq_tpu.engine.findseqs``, with the same hits in the same order).
+
+    :param fname: filename or sequence of filenames
+    :param seqs: list of template base strings
+    :returns: dict with ``hits`` (tuple of :py:data:`Hit`), ``stats`` (as
+        :py:func:`stats`), ``hitseqs`` (list of matched read base strings,
+        parallel to ``hits``)
+    '''
+    fnames = [fname] if isinstance(fname, str) else list(fname)
+    seqs = list(seqs)
+    with _scan('findseqs', len(seqs)):
+        matcher = _make_matcher(seqs) if seqs else None
+        sieve = _make_sieve(seqs) if seqs else None
+        seqlens = [len(s) for s in seqs]
+        hits = []
+        hitseqs = []
+        for batch in _batches(fnames, sieve):
+            if matcher is None:
+                continue
+            _emit(matcher.match_batch(batch), batch, seqlens,
+                  _config['minoverlap'], hits, hitseqs, _seqhits,
+                  _seqbasehits)
+        return {
+            'hits': tuple(hits),
+            'stats': stats(),
+            'hitseqs': hitseqs,
+        }
+
+
+def _emit(triplets, batch, seqlens, mo, hits, hitseqs, seqhits,
+          seqbasehits):
+    ''' convert passing (read, template, shift) triplets into Hit tuples in
+        the reference's single-threaded enumeration order (record, then
+        template, then mode A desc / B desc / C-or-D asc -- see
+        kvarq_tpu.engine.hitmodel), appending to ``hits``/``hitseqs`` and
+        adding into the per-template ``seqhits``/``seqbasehits``.
+
+        A copy of ``kvarq_tpu.engine._emit`` that takes the accumulators
+        as arguments: that one adds into kvarq_tpu.engine's own module
+        state. '''
+    if not len(triplets):
+        return
+    trip = np.unique(np.asarray(triplets, dtype=np.int64), axis=0)
+    b, t, d = trip[:, 0], trip[:, 1], trip[:, 2]
+    rl = batch.rl.astype(np.int64)[b]
+    seql = np.asarray(seqlens, dtype=np.int64)[t]
+
+    # one candidate emission per (triplet, mode); B and D can both fire at
+    # the same shift (the reference's mode-B/D border duplicate)
+    ab = (rl > mo) & (seql > mo)
+    emits = []   # (mask, rank, intra-mode order key, length)
+    # mode A (read tail over template head): i=-d desc  ->  d asc
+    mask = ab & (d < 0) & (-d >= np.maximum(1, rl - seql + 1)) \
+        & (-d <= rl - mo)
+    emits.append((mask, 0, d, rl + d))
+    # mode B (read head over template tail): i=d desc  ->  d desc
+    mask = ab & (d > 0) & (d >= np.maximum(1, seql - rl)) \
+        & (d <= seql - mo)
+    emits.append((mask, 1, -d, seql - d))
+    # mode C (template within read): i=-d asc  ->  d desc
+    mask = (rl > seql) & (d <= 0) & (-d <= rl - seql)
+    emits.append((mask, 2, -d, seql.copy()))
+    # mode D (read within template): i=d asc  ->  d asc
+    mask = (rl <= seql) & (d >= 0) & (d <= seql - rl)
+    emits.append((mask, 2, d, rl.copy()))
+
+    idx = np.concatenate([np.flatnonzero(m) for m, _, _, _ in emits])
+    rank = np.concatenate([np.full(int(m.sum()), r, dtype=np.int8)
+                           for m, r, _, _ in emits])
+    key = np.concatenate([k[m] for m, _, k, _ in emits])
+    length = np.concatenate([ln[m] for m, _, _, ln in emits])
+    if not len(idx):
+        return
+    order = np.lexsort((key, rank, t[idx], b[idx]))
+    idx, length = idx[order], length[order]
+    eb, et, ed = b[idx], t[idx], d[idx]
+    erl, efp = rl[idx], batch.filepos.astype(np.int64)[eb]
+    start = np.maximum(0, -ed)
+
+    np.add.at(seqhits, et, 1)
+    np.add.at(seqbasehits, et, length)
+
+    raw = batch.raw
+    for i in range(len(idx)):
+        hits.append(Hit(seq_nr=int(et[i]), file_pos=int(efp[i]),
+                        seq_pos=int(ed[i]), length=int(length[i]),
+                        readlength=int(erl[i])))
+        s = start[i]
+        hitseqs.append(
+            raw[eb[i], s:s + length[i]].tobytes().decode('latin-1'))

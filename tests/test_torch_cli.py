@@ -2,7 +2,8 @@
 End to end through the port: the Analyser and ``python -m
 kvarq_tpu_torch.cli scan`` on the MTBC fixtures give the reference's
 golden calls and the same coverages/analyses/stats as kvarq_tpu's numpy
-hit path; the package runs with jax absent.
+hit path, ``-H``/``-x``/``--profile`` give kvarq_tpu's hits, extracted
+records and phases; the package runs with jax absent.
 '''
 
 import json
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 
 from kvarq_tpu import analyse as janalyse
+from kvarq_tpu import cli as jcli
 from kvarq_tpu import engine as jengine
 from kvarq_tpu.fastq import Fastq
 from kvarq_tpu.log import set_warning
@@ -67,7 +69,7 @@ def test_analyser_matches_numpy_hit_path(sieve, monkeypatch):
 
     tengine.config(sieve=sieve, **params)
     got = analyse.Analyser()
-    got.scan(fastq, suites)
+    got.scan(fastq, suites, keep_hits=False)
     got.update_testsuites()
 
     assert got.hits is None
@@ -81,12 +83,6 @@ def test_analyser_matches_numpy_hit_path(sieve, monkeypatch):
     for k in ('analyses', 'stats', 'coverages'):
         assert e1[k] == e2[k]
     assert e2['info']['config'] == tengine.get_config()
-
-
-def test_analyser_keep_hits_not_ported():
-    with pytest.raises(NotImplementedError, match='not yet ported'):
-        analyse.Analyser().scan(Fastq(FASTQ2, quiet=True), {},
-                                keep_hits=True)
 
 
 def _scan_illustrate(capsys, tmp_path, fastq, params=()):
@@ -120,8 +116,7 @@ def test_cli_golden(capsys, tmp_path):
 
 
 @pytest.mark.parametrize('args', [
-    ['-H'], ['-x', 'hits.fastq'], ['--mesh', 'auto'],
-    ['--backend', 'xla'], ['--backend', 'pallas']])
+    ['--mesh', 'auto'], ['--backend', 'xla'], ['--backend', 'pallas']])
 def test_cli_refuses_unported_options(args, tmp_path, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main(['scan', '-l', 'MTBC', '-f', *args, FASTQ2,
@@ -130,9 +125,77 @@ def test_cli_refuses_unported_options(args, tmp_path, capsys):
     assert 'not yet ported' in capsys.readouterr().err
 
 
-def test_runs_without_jax():
-    ''' the port imports and scans with jax unimportable (the machine with
-        the card has none) '''
+def _scan_both(tmp_path, fastq, args, extra=()):
+    ''' the same scan through kvarq_tpu's CLI (numpy backend) and the
+        port's (CPU); ``args`` may name ``{dir}``, the run's own directory.
+        :returns: both result dicts and run directories '''
+    out = []
+    for name, main, backend in (('ref', jcli.main, 'numpy'),
+                                ('port', cli.main, 'cpu')):
+        d = tmp_path / name
+        d.mkdir()
+        main(['-q', '-t', TESTSUITES, 'scan', '-l', 'MTBC', '-f',
+              '--backend', backend, *extra,
+              *[a.format(dir=d) for a in args], fastq, str(d / 'out.json')])
+        with open(d / 'out.json') as fd:
+            out.append((json.load(fd), d))
+    return out
+
+
+@needs_genome
+@pytest.mark.parametrize('fastq,extra', [
+    (FASTQ1, ['--variant', 'Illumina 1.8+']), (FASTQ2, [])])
+def test_cli_hits_match_kvarq_tpu(fastq, extra, tmp_path):
+    ''' -H: the result json, hits included, equals kvarq_tpu's '''
+    (ref, _), (got, _) = _scan_both(tmp_path, fastq, ['-H'], extra)
+    assert len(got['hits']) > 0
+    for key in ('coverages', 'analyses', 'stats', 'hits', 'hitseqs'):
+        assert got[key] == ref[key], key
+    assert got['info']['config'] == ref['info']['config']
+
+
+@needs_genome
+def test_cli_extract_hits_match_kvarq_tpu(tmp_path, capsys):
+    ''' -x: the extracted FastQ records are byte-equal to kvarq_tpu's,
+        and an existing file is not overwritten without -f '''
+    (ref, rdir), (got, pdir) = _scan_both(tmp_path, FASTQ2,
+                                          ['-x', '{dir}/hits.fastq'])
+    assert 'hits' not in got
+    data = (pdir / 'hits.fastq').read_bytes()
+    assert data == (rdir / 'hits.fastq').read_bytes()
+    # one four-line record per hit
+    assert data.count(b'\n') == 4 * sum(got['stats']['nseqhits']) > 0
+
+    with pytest.raises(SystemExit) as e:
+        cli.main(['-q', '-t', TESTSUITES, 'scan', '-l', 'MTBC', '--backend',
+                  'cpu', '-x', str(pdir / 'hits.fastq'), FASTQ2,
+                  str(pdir / 'new.json')])
+    assert e.value.code == jcli.ERROR_FILE_EXISTS
+    assert not (pdir / 'new.json').exists()
+    assert (pdir / 'hits.fastq').read_bytes() == data
+
+
+@needs_genome
+def test_cli_profile_phases(tmp_path):
+    ''' --profile DIR: info.phases with kvarq_tpu's keys, and a
+        torch.profiler trace in DIR '''
+    (ref, _), (got, pdir) = _scan_both(tmp_path, FASTQ2,
+                                       ['--profile', '{dir}/trace'])
+    phases = got['info']['phases']
+    assert set(phases) == set(ref['info']['phases']) \
+        == {'scan', 'analyse', 'total'}
+    assert phases['total'] >= phases['scan'] >= 0
+    for key in ('coverages', 'analyses', 'stats'):
+        assert got[key] == ref[key], key
+    from kvarq_tpu_torch.profiling import TRACE_FILE
+    with open(pdir / 'trace' / TRACE_FILE) as fd:
+        events = json.load(fd)['traceEvents']
+    assert any('aten::' in str(ev.get('name')) for ev in events)
+
+
+def test_runs_without_jax(tmp_path):
+    ''' the port imports and scans, coverage path and ``scan -H -x``, with
+        jax unimportable (the machine with the card has none) '''
     code = '''
 import json, sys
 sys.modules['jax'] = None
@@ -141,15 +204,28 @@ import kvarq_tpu_torch.cli
 from kvarq_tpu_torch import engine
 engine.config(device='cpu', maxerrors=1, minoverlap=10, minreadlength=5)
 ret = engine.countseqs(sys.argv[1], ['CACCGGTGTAGGCAAGTCGTAACAAGG', 'CCC'])
+kvarq_tpu_torch.cli.main(['-q', '-t', sys.argv[2], 'scan', '-l', 'MTBC/phylo',
+                          '--backend', 'cpu', '-H', '-x', sys.argv[4],
+                          sys.argv[3], sys.argv[5]])
 assert not [m for m in sys.modules if m.startswith(('jax.', 'ml_dtypes.'))]
 print(json.dumps({'stats': ret['stats'],
                   'basecounts': [b.tolist() for b in ret['basecounts']]}))
 '''
     fastq = os.path.join(HERE, 'fastqs', 'test_engine.fastq')
-    proc = subprocess.run([sys.executable, '-c', code, fastq], cwd=ROOT,
-                          capture_output=True, text=True, timeout=120)
+    hits, out = str(tmp_path / 'hits.fastq'), str(tmp_path / 'out.json')
+    proc = subprocess.run([sys.executable, '-c', code, fastq, TESTSUITES,
+                           FASTQ2, hits, out], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     got = json.loads(proc.stdout.strip().splitlines()[-1])
+
+    cli.main(['-q', '-t', TESTSUITES, 'scan', '-l', 'MTBC/phylo', '-f',
+              '--backend', 'cpu', '-H', '-x', str(tmp_path / 'want.fastq'),
+              FASTQ2, str(tmp_path / 'want.json')])
+    with open(out) as a, open(tmp_path / 'want.json') as b:
+        assert json.load(a)['hits'] == json.load(b)['hits']
+    with open(hits, 'rb') as a, open(tmp_path / 'want.fastq', 'rb') as b:
+        assert a.read() == b.read()
 
     tengine.config(maxerrors=1, minoverlap=10, minreadlength=5)
     want = tengine.countseqs(fastq, ['CACCGGTGTAGGCAAGTCGTAACAAGG', 'CCC'])

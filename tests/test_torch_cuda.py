@@ -1,8 +1,9 @@
 '''
 kvarq_tpu_torch on the card: the CUDA candidate-screen kernel against its
-plain PyTorch version, and the scan step and scanner on CUDA against the
-same code on the CPU.  Skipped without an NVIDIA GPU (a CUDA kernel has no
-CPU mode); this file imports no jax, so it runs where jax is absent:
+plain PyTorch version, and the scan step, scanner, screening matcher and
+``findseqs`` on CUDA against the same code on the CPU.  Skipped without
+an NVIDIA GPU (a CUDA kernel has no CPU mode); this file imports no jax,
+so it runs where jax is absent:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 '''
@@ -14,10 +15,13 @@ import pytest
 import torch
 
 from kvarq_tpu.engine import reader
+from kvarq_tpu_torch import engine as tengine
+from kvarq_tpu_torch.engine import match_pallas
 from kvarq_tpu_torch.engine import pallas_scan as tps
 from kvarq_tpu_torch.engine import tensor_scan as tts
 
 from _torch_cases import case
+from test_engine import SEQS7
 
 pytestmark = pytest.mark.cuda
 FASTQ = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'fastqs',
@@ -126,3 +130,47 @@ def test_tensor_scanner_cuda_matches_cpu(cuda, rows, monkeypatch):
         np.testing.assert_array_equal(w, g)
     np.testing.assert_array_equal(out[0][1], out[1][1])
     np.testing.assert_array_equal(out[0][2], out[1][2])
+
+
+def _sorted(tri):
+    return tri[np.lexsort(tri.T[::-1])]
+
+
+@pytest.mark.parametrize('nch', [4, 5])
+@pytest.mark.parametrize('Lpad', [64, 192])
+def test_screening_matcher_cuda_matches_cpu(cuda, nch, Lpad):
+    ''' one K1 launch per batch, compaction on the card, the same
+        triplets as the plain screen on the CPU '''
+    seqs, codes, rl, _ = case(70 + Lpad, nch, B=96, Lpad=Lpad, nseq=9)
+    batch = reader.RecordBatch(codes, rl, np.zeros(len(codes), np.int64),
+                               None)
+    for e, mo in ((2, 25), (3, 8)):
+        want = match_pallas.PallasMatcher(seqs, e, mo, 'cpu') \
+            .match_batch(batch)
+        before = tps.cand_counts.launches
+        got = match_pallas.PallasMatcher(seqs, e, mo, cuda).match_batch(batch)
+        assert tps.cand_counts.launches == before + 1
+        np.testing.assert_array_equal(_sorted(got), _sorted(want))
+        assert len(want) > 0
+
+
+@pytest.mark.parametrize('params', [
+    dict(maxerrors=0, minoverlap=1000, minreadlength=3),
+    dict(maxerrors=1, minoverlap=10, minreadlength=5)])
+def test_findseqs_cuda_matches_cpu(cuda, params):
+    ''' the hit list on the card (through K1) equals the CPU's '''
+    out = []
+    try:
+        for dev in ('cpu', cuda):
+            tengine.config(device=str(dev), Amin='!', nthreads=1, **params)
+            before = tps.cand_counts.launches
+            out.append(tengine.findseqs(FASTQ, SEQS7))
+            if dev == cuda:
+                assert tps.cand_counts.launches > before
+    finally:
+        tengine.config(device='cuda')
+    assert out[0] == out[1]
+    assert len(out[0]['hits']) > 0
+    if params['minoverlap'] == 1000:
+        assert list(np.bincount([h.seq_nr for h in out[1]['hits']],
+                                minlength=7)) == [19, 1, 0, 1, 1, 1, 1]
