@@ -163,10 +163,11 @@ class Timed:
             self.seconds += time.time() - t0
 
 
-def timed_findseqs(engine, path, seqs):
+def timed_findseqs(engine, path, seqs, made=None):
     ''' one findseqs with the seconds in the matcher (screen, compaction,
         extraction, triplet readback: its result is on the host) and in
-        the host's ``_emit``; resets the peak device memory first.
+        the host's ``_emit``; resets the peak device memory first.  The
+        matchers built go into ``made`` when given.
         :returns: (result, wall s, matcher s, _emit s) '''
     import torch
     emit, make = Timed(engine._emit), engine._make_matcher
@@ -176,6 +177,8 @@ def timed_findseqs(engine, path, seqs):
         m = make(seqs_)
         m.match_batch = Timed(m.match_batch)
         matchers.append(m.match_batch)
+        if made is not None:
+            made.append(m)
         return m
 
     engine._emit, engine._make_matcher = emit, make_timed
@@ -209,6 +212,354 @@ def numpy_oracle(path, seqs):
     from kvarq_tpu import engine as oracle_engine
     oracle_engine.config(backend='numpy', sieve='off', **SCAN)
     return oracle_engine.findseqs(path, seqs)
+
+
+def countseqs_with_scanner(engine, path, seqs):
+    ''' one countseqs: (result, wall s, the scanner it built); resets the
+        peak device memory first '''
+    import torch
+    make = engine._make_scanner
+    made = []
+
+    def make_kept(seqs_):
+        made.append(make(seqs_))
+        return made[-1]
+
+    engine._make_scanner = make_kept
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        ret = engine.countseqs(path, seqs)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        engine._make_scanner = make
+    return ret, wall, made[0]
+
+
+def split_corpus(path, n_first):
+    ''' the corpus as two files: its first ``n_first`` records, the rest '''
+    parts = [path[:-len('.fastq')] + '_part%d.fastq' % k for k in (1, 2)]
+    if not all(os.path.exists(p) for p in parts):
+        with open(path, 'rb') as f:
+            for _ in range(4 * n_first):
+                f.readline()
+            cut = f.tell()
+            f.seek(0)
+            for p, data in zip(parts, (f.read(cut), f.read())):
+                with open(p + '.tmp', 'wb') as g:
+                    g.write(data)
+                os.replace(p + '.tmp', p)
+    return parts
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+# one process of phase (h)'s two-process run: scan_sharded over its share
+# of the files in the Gloo group named by KVARQ_COORDINATOR,
+# KVARQ_NUM_PROCESSES and KVARQ_PROCESS_ID, on its share of the host's
+# cards (both on the one card of a one-card host)
+SHARDED_WORKER = r'''
+import json
+import sys
+
+import numpy as np
+
+from kvarq_tpu_torch.engine import pallas_scan, reader
+from kvarq_tpu_torch.parallel import multihost
+
+out, params, seqs_path, files = sys.argv[1], sys.argv[2], sys.argv[3], \
+    sys.argv[4:]
+rank, world = multihost.initialize()
+with open(seqs_path) as f:
+    seqs = f.read().split()
+stats = reader.ReaderStats()
+covs, sh, sbh = multihost.scan_sharded(files, seqs, stats=stats,
+                                       **json.loads(params))
+np.savez(out, bc=np.concatenate([c.ravel() for c in covs]), sh=sh, sbh=sbh,
+         rls=stats.rls, counts=np.asarray([
+             stats.records_parsed, stats.parsed, stats.total,
+             stats.rls_longest]),
+         world=world, launches=pallas_scan.cand_counts.launches)
+'''
+
+
+def two_processes(parts, seqs):
+    ''' SHARDED_WORKER in two processes on this host: (their two results,
+        wall s); both are killed if either fails or 300 s pass '''
+    os.makedirs(WORK, exist_ok=True)
+    wpath = os.path.join(WORK, 'sharded_worker.py')
+    spath = os.path.join(WORK, 'sharded_seqs.txt')
+    with open(wpath, 'w') as f:
+        f.write(SHARDED_WORKER)
+    with open(spath, 'w') as f:
+        f.write('\n'.join(seqs))
+    env = dict(os.environ, KVARQ_COORDINATOR='localhost:%d' % free_port(),
+               KVARQ_NUM_PROCESSES='2', PYTHONPATH=os.pathsep.join(
+                   [HERE] + [p for p in [os.environ.get('PYTHONPATH')] if p]))
+    outs = [os.path.join(WORK, 'sharded_%d.npz' % i) for i in range(2)]
+    logs = [os.path.join(WORK, 'sharded_%d.log' % i) for i in range(2)]
+    procs = []
+    t0 = time.time()
+    try:
+        for i in range(2):
+            with open(logs[i], 'w') as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, wpath, outs[i], json.dumps(SCAN), spath,
+                     *parts], cwd=HERE, stdout=log, stderr=subprocess.STDOUT,
+                    env=dict(env, KVARQ_PROCESS_ID=str(i))))
+        while time.time() - t0 < 300 and any(p.poll() is None for p in procs) \
+                and not any(p.poll() for p in procs):
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    wall = time.time() - t0
+    for i, p in enumerate(procs):
+        with open(logs[i]) as f:
+            check(p.returncode == 0, 'scan_sharded process %d exited %s:\n%s'
+                  % (i, p.returncode, f.read()[-4000:]))
+    return [dict(np.load(o)) for o in outs], wall
+
+
+def shard_screen_gate(tps, bank, entries, params):
+    '''
+    K1 against ``cand_counts_ref`` on the bank shards of ``bank`` (a
+    ``parallel.ShardBank``), exactly: for every ``(what, j, codes, rl)`` of
+    ``entries`` (card tensors) and every ``(e, mo)`` of ``params``, K1 runs
+    against shard ``j``'s state on the card of ``codes``.  Every shard must
+    get candidates.
+
+    :returns: ``[(what, j, rows, candidates, kernel ms, plain ms)]``, one
+        per entry, the times of its first ``(e, mo)``
+    '''
+    out = []
+    found = np.zeros(bank.n_bank, dtype=np.int64)
+    for what, j, codes, rl in entries:
+        state = bank.state(j, codes.device)
+        n = 0
+        for e, mo in params:
+            got = tps.cand_counts(codes, rl, state, e, mo, state.nch)
+            want = tps.cand_counts_ref(codes, rl, state, e, mo, state.nch)
+            err = int((got - want).abs().max())
+            check(err == 0, 'K1 differs from cand_counts_ref on bank shard '
+                  '%d (B=%d, G=%d, Qp=%d, nch=%d, e=%d, mo=%d; max abs err '
+                  '%d)' % (j, len(codes), bank.G, bank.Qp, state.nch, e, mo,
+                           err))
+            n += int((want > 0).sum())
+        found[j] += n
+        e, mo = params[0]
+        out.append((what, j, len(codes), n, cuda_time_ms(
+            lambda: tps.cand_counts(codes, rl, state, e, mo, state.nch)),
+            cuda_time_ms(lambda: tps.cand_counts_ref(codes, rl, state, e, mo,
+                                                     state.nch))))
+    check((found > 0).all(), 'a bank shard got no candidate: %s'
+          % found.tolist())
+    return out
+
+
+def revcomp_codes(codes, rl):
+    ''' the reverse complements of rows of read codes, each within its read
+        length (A<->T, C<->G; N and junk stay) '''
+    comp = np.arange(256, dtype=np.uint8)
+    comp[:4] = [3, 2, 1, 0]
+    out = codes.copy()
+    for k, n in enumerate(rl):
+        out[k, :n] = comp[codes[k, :n][::-1]]
+    return out
+
+
+def sharded_arrays(covs, sh, sbh, stats):
+    return dict(bc=np.concatenate([c.ravel() for c in covs]), sh=sh, sbh=sbh,
+                rls=stats.rls, counts=np.asarray([
+                    stats.records_parsed, stats.parsed, stats.total,
+                    stats.rls_longest]))
+
+
+def scale_out(engine, tps, seqs, path, results, hit_off, by_path):
+    '''
+    phase (h): kvarq_tpu_torch.parallel against the single-device results
+    of phases (c), (g) and (e), bit for bit.  The meshes repeat a card
+    when the host has fewer than four.
+
+    - ``countseqs`` on a 2x2 mesh over the corpus, sieve off (K1 on every
+      entry) and on (dense, no K1), against (c); K1 against
+      ``cand_counts_ref`` on that scan's bank-shard states, exactly;
+    - ``findseqs`` on a 1x2 mesh, sieve off, against (g)'s hit stream;
+    - ``batch`` (the CLI) over the corpus split in two, against ``scan``
+      of the whole corpus; ``batch --per-sample`` on the golden fixtures
+      against (e)'s ``scan`` results;
+    - ``multihost.scan_sharded`` in two processes (Gloo over localhost)
+      against one process and (c).
+    '''
+    import torch
+    from kvarq_tpu_torch import parallel
+    from kvarq_tpu_torch.engine import reader
+    from kvarq_tpu_torch.parallel import multihost
+
+    ncards = torch.cuda.device_count()
+    cards = ['cuda:%d' % (k % ncards) for k in range(4)]
+    sc = parallel.dryrun(4)
+    say('h', 'dryrun on %s: the planted read hits' % sc.mesh)
+
+    mesh = parallel.make_mesh(2, 2, cards)
+    for sieve in ('off', 'auto'):
+        on = 'on' if sieve == 'auto' else 'off'
+        engine.config(device='cuda', sieve=sieve, mesh=mesh, **SCAN)
+        tps.cand_counts.launches = 0
+        ret, dt, scanner = countseqs_with_scanner(engine, path, seqs)
+        n = tps.cand_counts.launches
+        check(int(scanner.launches.sum()) == n, 'countseqs on %s: the '
+              'entries count %d K1 launches, the wrapper %d'
+              % (mesh, scanner.launches.sum(), n))
+        if sieve == 'off':
+            check((scanner.launches > 0).all(), 'countseqs sieve=off on %s: '
+                  'an entry never launched K1 (%s)'
+                  % (mesh, scanner.launches.tolist()))
+            gathered = scanner
+        else:
+            check(n == 0, 'the dense mesh scan launched K1 %d times' % n)
+        by_path['countseqs mesh=2x2 sieve=%s' % on] = n
+        want = results[sieve]
+        check(ret['stats'] == want['stats'], 'countseqs sieve=%s on %s: '
+              'stats differ from the single-device scan' % (sieve, mesh))
+        for t, (a, b) in enumerate(zip(ret['basecounts'],
+                                       want['basecounts'])):
+            check(np.array_equal(a, b), 'countseqs sieve=%s on %s: '
+                  'basecounts[%d] differ from the single-device scan'
+                  % (sieve, mesh, t))
+        say('h', 'countseqs sieve=%s on %s: %d reads in %.3fs = %.1f reads/s, '
+            'peak device memory %.2f GB, K1 launches per entry %s; '
+            'basecounts and stats equal (c) bit for bit' % (
+                sieve, mesh, ret['stats']['records_parsed'], dt,
+                ret['stats']['records_parsed'] / dt,
+                torch.cuda.max_memory_allocated() / 1e9,
+                scanner.launches.tolist()))
+
+    # K1 on the bank-shard states that scan used, at its slice shapes: the
+    # two 2,048-row slices of the first step, each on its entries' card, a
+    # 576-row one (the last batch's slices), and the reverse complement of
+    # the first slice (the corpus is planted from plus strands, and the
+    # second shard holds the minus strands)
+    batch = next(iter(reader.batches([path], ord(SCAN['Amin']),
+                                     SCAN['minreadlength'],
+                                     reader.ReaderStats(), batchsize=MAIN_B,
+                                     nthreads=8)))
+    sbank = gathered.context(batch.codes.shape[1])
+    rc = revcomp_codes(batch.codes[:2048], batch.rl[:2048])
+    slices = [(mesh.devices[i], 'rows %d-%d' % (i * 2048, i * 2048 + 2047),
+               batch.codes[i * 2048:(i + 1) * 2048],
+               batch.rl[i * 2048:(i + 1) * 2048]) for i in range(2)]
+    slices += [(mesh.devices[0], 'rows 0-575', batch.codes[:576],
+                batch.rl[:576]),
+               (mesh.devices[0], 'rows 0-2047 reverse-complemented', rc,
+                batch.rl[:2048])]
+    entries = [(what, j, torch.from_numpy(np.ascontiguousarray(c)).to(dev),
+                torch.from_numpy(r.astype(np.int32)).to(dev))
+               for row, what, c, r in slices for j, dev in enumerate(row)]
+    for what, j, B_, n_, k_, p_ in shard_screen_gate(
+            tps, sbank, entries, [(SCAN['maxerrors'], SCAN['minoverlap'])]):
+        say('h', 'K1 == cand_counts_ref exactly on bank shard %d of %d of the '
+            'scan, corpus %s (B=%d, G=%d, Qp=%d, nch=%d, %d candidates); '
+            'kernel %.3f ms, plain %.3f ms' % (
+                j, sbank.n_bank, what, B_, sbank.G, sbank.Qp, sbank.nch, n_,
+                k_, p_))
+    del batch, rc, slices, entries, gathered
+
+    mesh = parallel.make_mesh(1, 2, cards[:2])
+    engine.config(device='cuda', sieve='off', mesh=mesh, **SCAN)
+    tps.cand_counts.launches = 0
+    made = []
+    got, dt, t_match, t_emit = timed_findseqs(engine, path, seqs, made)
+    n = tps.cand_counts.launches
+    check(int(made[0].launches.sum()) == n and (made[0].launches > 0).all(),
+          'findseqs on %s: K1 launches per entry %s, by the wrapper %d'
+          % (mesh, made[0].launches.tolist(), n))
+    by_path['findseqs mesh=1x2 sieve=off'] = n
+    check(got == hit_off, 'findseqs on %s: the hit stream (hits, hitseqs, '
+          'stats) differs from the single-device one of (g)' % mesh)
+    say('h', 'findseqs sieve=off on %s: %d reads in %.3fs = %.1f reads/s, '
+        '%d hits; matcher %.3fs, _emit %.3fs; peak device memory %.2f GB, '
+        'K1 launches per entry %s; the hit stream equals (g) tuple for tuple'
+        % (mesh, got['stats']['records_parsed'], dt,
+           got['stats']['records_parsed'] / dt, len(got['hits']), t_match,
+           t_emit, torch.cuda.max_memory_allocated() / 1e9,
+           made[0].launches.tolist()))
+    engine.config(mesh='')
+    del got, made
+
+    # batch through the CLI, merged and per sample
+    t0 = time.time()
+    parts = split_corpus(path, N_READS // 2)
+    say('setup', 'corpus split into %s in %.1fs' % (
+        ' + '.join(os.path.basename(p) for p in parts), time.time() - t0))
+    cli = [sys.executable, '-m', 'kvarq_tpu_torch.cli', '-q', '-t',
+           'testsuites']
+    scanj = os.path.join(WORK, 'corpus.scan.json')
+    batchj = os.path.join(WORK, 'corpus.batch.json')
+    t0 = time.time()
+    run(cli + ['scan', '-f', '-l', 'MTBC', path, scanj])
+    t_scan = time.time() - t0
+    t0 = time.time()
+    run(cli + ['batch', '-f', '-l', 'MTBC', *parts, batchj])
+    t_batch = time.time() - t0
+    ref, out = json.load(open(scanj)), json.load(open(batchj))
+    for key in ('coverages', 'analyses', 'stats'):
+        check(out[key] == ref[key], 'batch of the two parts: %s differ from '
+              'scan of the whole corpus' % key)
+    say('h', 'batch of the 2 parts (%.1fs, process included) equals scan of '
+        'the corpus (%.1fs): coverages, analyses, stats (%d records)'
+        % (t_batch, t_scan, out['stats']['records_parsed']))
+    psdir = os.path.join(WORK, 'per_sample')
+    for name, (extra, _) in GOLDEN.items():
+        run(cli + ['batch', '-f', '--per-sample', '-l', 'MTBC', *extra,
+                   os.path.join('tests', 'fastqs', name), psdir])
+        ref = json.load(open(os.path.join(WORK, '%s.auto.json' % name)))
+        out = json.load(open(os.path.join(
+            psdir, name[:-len('.fastq')] + '.json')))
+        for key in ('coverages', 'analyses', 'stats'):
+            check(out[key] == ref[key], 'batch --per-sample %s: %s differ '
+                  'from its scan' % (name, key))
+    check(os.path.exists(os.path.join(psdir, 'summary.csv')),
+          'batch --per-sample wrote no summary.csv')
+    say('h', 'batch --per-sample on %s equals their scan results of (e): '
+        'coverages, analyses, stats' % ' and '.join(GOLDEN))
+
+    # scan_sharded: two processes against one
+    stats = reader.ReaderStats()
+    tps.cand_counts.launches = 0
+    t0 = time.time()
+    one = sharded_arrays(*multihost.scan_sharded(
+        parts, seqs, mesh=parallel.make_mesh(2, 2, cards), stats=stats,
+        **SCAN), stats)
+    t_one = time.time() - t0
+    by_path['scan_sharded mesh=2x2 1 process'] = tps.cand_counts.launches
+    single = np.concatenate([c.ravel() for c in results['auto']['basecounts']])
+    st = results['auto']['stats']
+    check(np.array_equal(one['bc'], single)
+          and one['sh'].tolist() == list(st['nseqhits'])
+          and one['sbh'].tolist() == list(st['nseqbasehits'])
+          and int(one['counts'][0]) == st['records_parsed']
+          and int(one['counts'][1]) == st['parsed'],
+          'scan_sharded in one process differs from the single-device scan')
+    two, t_two = two_processes(parts, seqs)
+    by_path['scan_sharded 2 processes'] = int(sum(r['launches'] for r in two))
+    for i, r in enumerate(two):
+        check(int(r['world']) == 2, 'process %d ran alone' % i)
+        for key, value in one.items():
+            check(np.array_equal(r[key], value), 'scan_sharded process %d: '
+                  '%s differs from one process' % (i, key))
+    say('h', 'scan_sharded in 2 processes (Gloo over localhost, %.1fs, start '
+        'included) equals one process on a 2x2 mesh (%.1fs) and (c) bit for '
+        'bit: basecounts, seqhits, seqbasehits, reader stats' % (t_two, t_one))
 
 
 def main():
@@ -311,7 +662,18 @@ def main():
                                                     5)),
                cuda_time_ms(lambda: tps.cand_counts_ref(c5, r5, state5, e5,
                                                         mo5, 5))))
-    del codes, rl, got, want, c5, r5, state5
+    from kvarq_tpu_torch import parallel
+    sbank5 = parallel.ShardBank(nbank, 128, 2, 10)
+    check(sbank5.nch == 5, '5-channel shard bank expected')
+    for _, j, B5, n5, k5, p5 in shard_screen_gate(
+            tps, sbank5, [(None, j, c5[sl], r5[sl]) for j in range(2)
+                          for sl in (slice(0, 2048), slice(2048, None))],
+            ((0, 25), (3, 8))):
+        say('b', 'K1 == cand_counts_ref exactly on shard %d of the 5-channel '
+            'bank split in 2 (B=%d, G=%d, Qp=%d, e=0 and 3, %d candidates); '
+            'kernel %.3f ms, plain %.3f ms' % (j, B5, sbank5.G, sbank5.Qp,
+                                               n5, k5, p5))
+    del codes, rl, got, want, c5, r5, state5, sbank5
 
     # (d) oracle gate on the first 8192 reads, both sieve modes (this also
     # warms the port's engine before the timed scans)
@@ -438,6 +800,7 @@ def main():
         '%.3fs (%.1f%% busy), K1 %.3fs; longest: %s' % (
             wall, busy, 100 * busy / wall, k1,
             '; '.join('%s %.1f ms' % kv for kv in top)))
+    hit_off = hit['off']        # phase (h) holds the mesh hit path to it
     del hit
 
     # (g') hit-dense: half the reads planted, sieve off (compaction keeps
@@ -532,6 +895,10 @@ def main():
         '%d of them cand_screen_kernel' % (
             ' '.join('%s=%.3fs' % kv for kv in sorted(phases.items())),
             len(names), nk1))
+
+    # (h) the scale-out layer, bit for bit against the single-device
+    # results above
+    scale_out(engine, tps, seqs, path, results, hit_off, by_path)
 
     # (f) summary
     say('f', 'peak device memory of this process %.2f GB; total %.1fs' % (

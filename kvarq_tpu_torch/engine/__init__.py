@@ -12,7 +12,8 @@ kvarq_tpu by import.  The device steps are
 and the matchers of :py:mod:`kvarq_tpu_torch.engine.match_pallas` (on
 the card: candidate screen, then exact extraction) and
 :py:mod:`kvarq_tpu_torch.engine.match_xla` (on the CPU: exact extraction
-alone).
+alone); with a ``mesh`` configured, their sharded counterparts in
+:py:mod:`kvarq_tpu_torch.parallel`.
 '''
 
 import contextlib
@@ -40,6 +41,7 @@ _extra_config = {
     'device': 'cuda',
     'batchsize': int(os.environ.get('KVARQ_BATCHSIZE', '16384')),
     'sieve': os.environ.get('KVARQ_SIEVE', 'auto'),
+    'mesh': os.environ.get('KVARQ_MESH', ''),
 }
 
 _lock = threading.Lock()
@@ -54,7 +56,10 @@ _seqbasehits = np.zeros(0, dtype=np.int64)
 def config(**kwargs):
     ''' update engine configuration; accepts the reference keys
         (maxerrors, minoverlap, minreadlength, nthreads, Amin, Azero) plus
-        ``device`` (a torch device string), ``batchsize`` and ``sieve`` '''
+        ``device`` (a torch device string), ``batchsize``, ``sieve`` and
+        ``mesh`` (a spec for :py:func:`kvarq_tpu_torch.parallel.parse_mesh`
+        on ``device``, or a :py:class:`~kvarq_tpu_torch.parallel.Mesh`;
+        empty: one device) '''
     for key, value in kwargs.items():
         if key in ('Amin', 'Azero'):
             if not isinstance(value, str) or len(value) != 1:
@@ -164,6 +169,34 @@ def _batches(fnames, sieve):
         raise FastqFileFormatException(str(e))
 
 
+def _mesh():
+    ''' the configured mesh, None for the single-device scan '''
+    from kvarq_tpu_torch import parallel
+    spec = _extra_config['mesh']
+    if isinstance(spec, parallel.Mesh):
+        return spec
+    spec = str(spec or '').strip().lower()
+    if spec in ('', 'off', '0', 'no', 'none'):
+        return None
+    mesh = parallel.parse_mesh(spec, _extra_config['device'])
+    lo.info('scanning over %s' % mesh)
+    return mesh
+
+
+def _make_scanner(seqs):
+    ''' the single-device TensorScanner, or a ShardedScanner when a mesh
+        is configured '''
+    from kvarq_tpu_torch import device
+    mesh = _mesh()
+    if mesh is not None:
+        from kvarq_tpu_torch.parallel import ShardedScanner
+        return ShardedScanner(seqs, _config['maxerrors'],
+                              _config['minoverlap'], mesh)
+    from kvarq_tpu_torch.engine.tensor_scan import TensorScanner
+    return TensorScanner(seqs, _config['maxerrors'], _config['minoverlap'],
+                         device.select(_extra_config['device']))
+
+
 def countseqs(fname, seqs):
     '''
     tensorized scan: accumulates per-template base counts on the device
@@ -174,15 +207,10 @@ def countseqs(fname, seqs):
     :returns: dict with ``basecounts`` (list of [5, S] int64 arrays in
         scanned-strand coordinates, parallel to ``seqs``) and ``stats``
     '''
-    from kvarq_tpu_torch import device
-    from kvarq_tpu_torch.engine.tensor_scan import TensorScanner
-
     fnames = [fname] if isinstance(fname, str) else list(fname)
     seqs = list(seqs)
     with _scan('countseqs', len(seqs)):
-        scanner = TensorScanner(
-            seqs, _config['maxerrors'], _config['minoverlap'],
-            device.select(_extra_config['device'])) if seqs else None
+        scanner = _make_scanner(seqs) if seqs else None
         sieve = _make_sieve(seqs) if seqs else None
         if sieve is not None:
             # sieve-fed batches hold only candidate reads: start dense
@@ -209,17 +237,27 @@ def countseqs(fname, seqs):
         }
 
 
-def _make_matcher(seqs):
+def _matcher_on(dev, seqs, maxerrors, minoverlap):
     ''' the screening matcher on a CUDA device (every batch through the
         candidate screen), exact extraction alone on the CPU '''
-    from kvarq_tpu_torch import device
-    dev = device.select(_extra_config['device'])
     if dev.type == 'cuda':
         from kvarq_tpu_torch.engine.match_pallas import PallasMatcher
-        return PallasMatcher(seqs, _config['maxerrors'],
-                             _config['minoverlap'], dev)
+        return PallasMatcher(seqs, maxerrors, minoverlap, dev)
     from kvarq_tpu_torch.engine.match_xla import XlaMatcher
-    return XlaMatcher(seqs, _config['maxerrors'], _config['minoverlap'], dev)
+    return XlaMatcher(seqs, maxerrors, minoverlap, dev)
+
+
+def _make_matcher(seqs):
+    ''' the matcher of the configured device (:py:func:`_matcher_on`);
+        with a mesh configured, the sharded screen over the mesh '''
+    from kvarq_tpu_torch import device
+    mesh = _mesh()
+    if mesh is not None:
+        from kvarq_tpu_torch.parallel import ShardedMatcher
+        return ShardedMatcher(seqs, _config['maxerrors'],
+                              _config['minoverlap'], mesh)
+    return _matcher_on(device.select(_extra_config['device']), seqs,
+                       _config['maxerrors'], _config['minoverlap'])
 
 
 def findseqs(fname, seqs):

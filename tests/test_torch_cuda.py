@@ -1,7 +1,9 @@
 '''
 kvarq_tpu_torch on the card: the CUDA candidate-screen kernel against its
-plain PyTorch version, and the scan step, scanner, screening matcher and
-``findseqs`` on CUDA against the same code on the CPU.  Skipped without
+plain PyTorch version, the scan step, scanner, screening matcher and
+``findseqs`` on CUDA against the same code on the CPU, and the sharded
+scanner and matcher (on a mesh that repeats one card, and over every
+card) against the single-device ones.  Skipped without
 an NVIDIA GPU (a CUDA kernel has no CPU mode); this file imports no jax,
 so it runs where jax is absent:
 
@@ -16,6 +18,7 @@ import torch
 
 from kvarq_tpu.engine import reader
 from kvarq_tpu_torch import engine as tengine
+from kvarq_tpu_torch import parallel
 from kvarq_tpu_torch.engine import match_pallas
 from kvarq_tpu_torch.engine import pallas_scan as tps
 from kvarq_tpu_torch.engine import tensor_scan as tts
@@ -174,3 +177,85 @@ def test_findseqs_cuda_matches_cpu(cuda, params):
     if params['minoverlap'] == 1000:
         assert list(np.bincount([h.seq_nr for h in out[1]['hits']],
                                 minlength=7)) == [19, 1, 0, 1, 1, 1, 1]
+
+
+def _cards(cuda, cards, n):
+    ''' ``n`` mesh entries: the one card repeated, or every card in turn '''
+    if cards == 'one card':
+        return [cuda] * n
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip('needs two NVIDIA GPUs')
+    return [torch.device('cuda', k % count) for k in range(n)]
+
+
+@pytest.mark.parametrize('cards', ['one card', 'every card'])
+@pytest.mark.parametrize('dense', [False, True], ids=['gathered', 'dense'])
+def test_sharded_scanner_cuda_matches_tensor_scanner(cuda, dense, cards):
+    ''' a 2x2 mesh (on one card, or over every card) equals the
+        single-device TensorScanner; gathered, K1 runs on every entry of
+        every step, dense never '''
+    seqs = ['CACCGGTGTAGGCAAGTCGTAACAAGG', 'TTTTTTTTTTGGGGGGGGGG', 'CCC',
+            'CCTTGTTACGACTTGCCTACACCGGTG', 'CCCCCCCCCCAAAAAAAAAA']
+    scanners = [tts.TensorScanner(seqs, 1, 5, cuda),
+                parallel.ShardedScanner(seqs, 1, 5, parallel.make_mesh(
+                    2, 2, _cards(cuda, cards, 4)))]
+    sharded = scanners[1]
+    sharded.B_LOCAL, sharded.GATHER_K = 8, 2
+    if dense:
+        sharded.assume_dense()
+    out = []
+    for sc in scanners:
+        before = tps.cand_counts.launches
+        stats = reader.ReaderStats()
+        for batch in reader.batches([FASTQ], ord('!'), 5, stats,
+                                    batchsize=32):
+            sc.scan_batch(batch)
+        out.append((sc.coverages(), sc.seqhits, sc.seqbasehits))
+    launched = tps.cand_counts.launches - before
+    if dense:
+        assert launched == 0
+    else:
+        assert launched == sharded.launches.sum() > 0
+        assert (sharded.launches == sharded.launches[0, 0]).all()
+    for w, g in zip(out[0][0], out[1][0]):
+        np.testing.assert_array_equal(w, g)
+    np.testing.assert_array_equal(out[0][1], out[1][1])
+    np.testing.assert_array_equal(out[0][2], out[1][2])
+    assert out[0][1].sum() > 0
+
+
+@pytest.mark.parametrize('cards', ['one card', 'every card'])
+@pytest.mark.parametrize('nch', [4, 5])
+def test_sharded_matcher_cuda_matches_pallas_matcher(cuda, nch, cards):
+    ''' the mesh hit path (1x2 and 2x2, on one card or over every card)
+        gives the screening matcher's triplets, one K1 launch per entry
+        and chunk '''
+    seqs, codes, rl, _ = case(90 + nch, nch, B=96, Lpad=64, nseq=9)
+    batch = reader.RecordBatch(codes, rl, np.zeros(len(codes), np.int64),
+                               None)
+    want = match_pallas.PallasMatcher(seqs, 2, 25, cuda).match_batch(batch)
+    assert len(want) > 0
+    for n_data, n_bank in ((1, 2), (2, 2)):
+        matcher = parallel.ShardedMatcher(
+            seqs, 2, 25, parallel.make_mesh(
+                n_data, n_bank, _cards(cuda, cards, n_data * n_bank)),
+            b_local=32)
+        before = tps.cand_counts.launches
+        got = matcher.match_batch(batch)
+        chunks = -(-96 // (32 * n_data))
+        assert tps.cand_counts.launches - before \
+            == matcher.launches.sum() == chunks * n_data * n_bank
+        assert (matcher.launches == chunks).all()
+        np.testing.assert_array_equal(_sorted(got), _sorted(want))
+
+
+def test_local_mesh_cuda(cuda):
+    ''' a process alone takes every card of its host for its default mesh,
+        all on the data axis '''
+    from kvarq_tpu_torch.parallel import multihost
+    mesh = multihost.local_mesh('cuda')
+    count = torch.cuda.device_count()
+    assert mesh.shape == {'data': count, 'bank': 1}
+    assert [row[0] for row in mesh.devices] == [
+        torch.device('cuda', k) for k in range(count)]
