@@ -20,6 +20,7 @@ files go to build/kvarq_tpu_torch/smoke/.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -34,7 +35,7 @@ READLEN = 101
 DENSE_READS = 262144
 DENSE_PLANT = 0.5
 MAIN_B = 16384      # reads per batch, as the engine's default batchsize
-# CLI defaults (kvarq_tpu/config.py): e=2, o=25, r=25, Q13 on Sanger
+# CLI defaults (kvarq_tpu_torch/config.py): e=2, o=25, r=25, Q13 on Sanger
 SCAN = dict(maxerrors=2, minoverlap=25, minreadlength=25, nthreads=8,
             Amin=chr(33 + 13))
 GOLDEN = {
@@ -78,6 +79,43 @@ def cuda_time_ms(fn, reps=5):
     return float(np.median(times))
 
 
+# the least time of K1's work on an H100 SXM at 700 W (NVIDIA's data sheet,
+# dense): int8 tensor-core operations and HBM bytes
+INT8_TOPS = 1979.0
+HBM_TBPS = 3.35
+
+
+def k1_bound(B, Lpad, state):
+    ''' K1's bound at this call: the one-hot product's 2 * B * Lpad * nch
+        * Qp int8 operations at the card's int8 peak, or the bytes of its
+        inputs read once and its output written once at the memory rate,
+        whichever is longer '''
+    ops = 2.0 * B * Lpad * state.nch * state.Qp
+    nbytes = (B * Lpad + 4 * B + state.bank.numel() + state.qmeta.numel() * 4
+              + 4 * B)
+    t_ops = ops / (INT8_TOPS * 1e12) * 1e3
+    t_bytes = nbytes / (HBM_TBPS * 1e12) * 1e3
+    return dict(ops=ops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
+                bound_by='operations' if t_ops >= t_bytes else 'bytes')
+
+
+def ptxas_summary(report):
+    ''' registers, shared memory and spills of each kernel entry in an
+        ``nvcc -Xptxas -v`` report, each named by its template arguments
+        (``SP=4``: the depth bytes per read position of nch 4) '''
+    entries = [['file']]
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            args = re.findall(r'Li(\d+)E', m.group(1))
+            entries.append(['SP=' + ','.join(args) if args else m.group(1)])
+        elif (('registers' in line or 'spill' in line or 'serialized' in line)
+              and 'is injected' not in line):
+            entries[-1].append(line.split('ptxas info    :')[-1].strip())
+    return ' | '.join('%s: %s' % (e[0], '; '.join(e[1:]))
+                      for e in entries if len(e) > 1)
+
+
 def run(cmd, env=None, timeout=300):
     proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
                           timeout=timeout, env=dict(os.environ, **(env or {})))
@@ -87,24 +125,18 @@ def run(cmd, env=None, timeout=300):
 
 
 def corpus(seqs_windows, n_reads=N_READS, plant=None):
-    ''' a bench corpus (bench.generate_fastq, seed 20260817; ``plant``
-        overrides bench.PLANT_FRAC for the call) and its first 8192
+    ''' a bench corpus (kvarq_tpu_torch.bench.generate_fastq, seed
+        20260817; ``plant`` overrides bench.PLANT_FRAC) and its first 8192
         reads '''
-    import bench
+    from kvarq_tpu_torch import bench
     os.makedirs(WORK, exist_ok=True)
     tag = 'mtbc_%dx%d%s' % (n_reads, READLEN,
                             '_p%g' % plant if plant is not None else '')
     path = os.path.join(WORK, tag + '.fastq')
     prefix = os.path.join(WORK, tag + '_prefix_8192.fastq')
     if not os.path.exists(path):
-        saved = bench.PLANT_FRAC
-        if plant is not None:
-            bench.PLANT_FRAC = plant
-        try:
-            bench.generate_fastq(path + '.tmp', seqs_windows, n_reads,
-                                 READLEN)
-        finally:
-            bench.PLANT_FRAC = saved
+        bench.generate_fastq(path + '.tmp', seqs_windows, n_reads, READLEN,
+                             plant=plant)
         os.replace(path + '.tmp', path)
     with open(path) as f, open(prefix, 'w') as g:
         for _ in range(4 * 8192):
@@ -136,11 +168,10 @@ def traced_scan(scan, path, seqs):
 
 
 def oracle_gate(ret, prefix, seqs, found):
-    ''' bench.assert_device_matches_oracle with the numpy matcher of the
-        shared (jax-free) kvarq_tpu engine configured like the scan '''
-    import bench
-    from kvarq_tpu import engine as oracle_engine
-    oracle_engine.config(**SCAN)
+    ''' bench.assert_device_matches_oracle: the port engine, configured
+        like the scan, with the byte-exact numpy matcher of its
+        match_numpy '''
+    from kvarq_tpu_torch import bench
     try:
         return bench.assert_device_matches_oracle(ret, prefix, seqs,
                                                   found=found)
@@ -198,7 +229,7 @@ def hits_gate(found, counted, seqs, what):
     ''' a findseqs result replays into the countseqs result of the same
         input: equal stats, and bench.oracle_basecounts of the hit list
         equals the basecounts '''
-    import bench
+    from kvarq_tpu_torch import bench
     check(found['stats'] == counted['stats'],
           '%s: findseqs and countseqs stats differ' % what)
     for t, (got, want) in enumerate(zip(bench.oracle_basecounts(found, seqs),
@@ -207,11 +238,12 @@ def hits_gate(found, counted, seqs, what):
               'differ from countseqs' % (what, t))
 
 
-def numpy_oracle(path, seqs):
-    ''' kvarq_tpu's byte-exact numpy findseqs, configured like the scan '''
-    from kvarq_tpu import engine as oracle_engine
-    oracle_engine.config(backend='numpy', sieve='off', **SCAN)
-    return oracle_engine.findseqs(path, seqs)
+def numpy_oracle(engine, path, seqs):
+    ''' the byte-exact numpy findseqs of the port, configured like the
+        scan '''
+    from kvarq_tpu_torch import bench
+    engine.config(**SCAN)
+    return bench.numpy_findseqs(path, seqs)
 
 
 def countseqs_with_scanner(engine, path, seqs):
@@ -567,9 +599,7 @@ def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False', file=sys.stderr)
         return 1
-    sys.path.insert(0, HERE)
-    import bench
-    from kvarq_tpu_torch import device, engine
+    from kvarq_tpu_torch import bench, device, engine
     from kvarq_tpu_torch.engine import native_cuda, reader
     from kvarq_tpu_torch.engine import pallas_scan as tps
     from kvarq_tpu_torch.engine import tensor_scan as tts
@@ -588,11 +618,8 @@ def main():
         torch.__version__, torch.version.cuda, kind,
         torch.cuda.device_count(), card))
     native_cuda.load('cand_screen.cu')
-    say('a', 'cand_screen.cu built in %.2fs (nvcc sm_90a); ptxas: %s' % (
-        native_cuda.build_seconds['cand_screen.cu'],
-        ' | '.join(l.strip() for l in native_cuda.ptxas_report.get(
-            'cand_screen.cu', '').splitlines()
-            if 'registers' in l or 'spill' in l)))
+    say('a', 'cand_screen.cu built in %.2fs (nvcc sm_90a)'
+        % native_cuda.build_seconds['cand_screen.cu'])
 
     suites = bench.load_mtbc()
     windows = bench.template_windows(suites)
@@ -624,14 +651,35 @@ def main():
     err = int((got - want).abs().max())
     check(err == 0, 'K1 differs from cand_counts_ref at the main-path shape '
           '(max abs err %d)' % err)
-    k_ms = cuda_time_ms(
-        lambda: tps.cand_counts(codes, rl, state, e, mo, state.nch))
+    say('b', 'ptxas -v of cand_screen.cu: %s' % ptxas_summary(
+        native_cuda.ptxas_report.get('cand_screen.cu', '')))
+    # plain (the kernel's plain version), kernel, kernel, plain
     ref_ms = cuda_time_ms(
         lambda: tps.cand_counts_ref(codes, rl, state, e, mo, state.nch))
+    k_ms = cuda_time_ms(
+        lambda: tps.cand_counts(codes, rl, state, e, mo, state.nch))
+    k_ms2 = cuda_time_ms(
+        lambda: tps.cand_counts(codes, rl, state, e, mo, state.nch))
+    ref_ms2 = cuda_time_ms(
+        lambda: tps.cand_counts_ref(codes, rl, state, e, mo, state.nch))
+    # context, not the same function (no screen): the fp16 product of the
+    # one-hot reads with the bank's K alone, as cuBLAS runs it
+    flat = tps.one_hot(codes, state.nch, state.K.dtype).reshape(B, -1)
+    mm_ms = cuda_time_ms(lambda: flat @ state.K)
+    del flat
+    k1b = k1_bound(B, Lpad, state)
     say('b', 'K1 == cand_counts_ref exactly at B=%d Lpad=%d G=%d Q=%d Qp=%d '
-        'nch=%d (%d candidates); kernel %.3f ms, plain %.3f ms (median of 5)'
+        'nch=%d (%d candidates); kernel %.3f / %.3f ms, plain %.3f / %.3f ms '
+        '(median of 5 each, in turns plain, kernel, kernel, plain); the fp16 '
+        'torch.matmul of the one-hot product alone %.3f ms (context: no '
+        'screen); bound %.3f ms (%.3g int8 operations at %.0f TOP/s, %.3g '
+        'bytes at %.2f TB/s: %s-bound), the kernel at %.1f%% of it; %s'
         % (B, Lpad, bank.G, bank.Q, state.Qp, state.nch,
-           int((got > 0).sum()), k_ms, ref_ms))
+           int((got > 0).sum()), k_ms, k_ms2, ref_ms, ref_ms2, mm_ms,
+           k1b['bound_ms'], k1b['ops'], INT8_TOPS, k1b['bytes'],
+           HBM_TBPS, k1b['bound_by'], 100 * k1b['bound_ms'] / k_ms, card))
+    ref_ms = min(ref_ms, ref_ms2)
+    k_ms = min(k_ms, k_ms2)
 
     rng = np.random.RandomState(5)
     nbank = [''.join(rng.choice(list('ACGTN'), rng.randint(30, 300)))
@@ -824,7 +872,7 @@ def main():
             nrec, dt, nrec / dt, len(got['hits']), t_match, t_emit,
             torch.cuda.max_memory_allocated() / 1e9, n))
     hits_gate(got, engine.countseqs(dpath, seqs), seqs, 'hit-dense corpus')
-    want = numpy_oracle(dprefix, seqs)
+    want = numpy_oracle(engine, dprefix, seqs)
     check(engine.findseqs(dprefix, seqs) == want, 'hit-dense findseqs differs '
           'from the numpy oracle on the first 8192 reads')
     say("g'", 'replayed, the hit list equals the countseqs basecounts and '
@@ -832,15 +880,16 @@ def main():
         'tuple (%d hits)' % len(want['hits']))
     del got, want
 
-    # (e) CLI golden runs against kvarq_tpu's numpy hit path: the coverage
-    # path, then -H -x, then one --profile trace
+    # (e) CLI golden runs on the card against the port's own run of the
+    # hit path on the CPU (which the tests hold equal to kvarq_tpu's numpy
+    # hit path): the coverage path, then -H -x, then one --profile trace
     for name, (extra, calls) in GOLDEN.items():
         fq = os.path.join('tests', 'fastqs', name)
         refj = os.path.join(WORK, name + '.ref.json')
         refx = os.path.join(WORK, name + '.ref.hits.fastq')
-        run([sys.executable, '-m', 'kvarq_tpu.cli', '-q', '-t', 'testsuites',
-             'scan', '-f', '-l', 'MTBC', '--backend', 'numpy', '-H',
-             '-x', refx, *extra, fq, refj])
+        run([sys.executable, '-m', 'kvarq_tpu_torch.cli', '-q', '-t',
+             'testsuites', 'scan', '-f', '-l', 'MTBC', '--backend', 'cpu',
+             '-H', '-x', refx, *extra, fq, refj])
         ref = json.load(open(refj))
         with open(refx, 'rb') as f:
             ref_records = f.read()
@@ -857,9 +906,9 @@ def main():
             out = json.load(open(outj))
             for key in ('coverages', 'analyses', 'stats'):
                 check(out[key] == ref[key], '%s sieve=%s: %s differ from the '
-                      'numpy hit path' % (name, sieve, key))
+                      'hit path on the CPU' % (name, sieve, key))
         say('e', '%s: golden calls present, coverages/analyses/stats equal '
-            'the numpy hit path (sieve off and on)' % name)
+            'the hit path on the CPU (sieve off and on)' % name)
         for sieve in ('off', 'auto'):
             outj = os.path.join(WORK, '%s.%s.hits.json' % (name, sieve))
             outx = os.path.join(WORK, '%s.%s.hits.fastq' % (name, sieve))
@@ -869,13 +918,15 @@ def main():
             out = json.load(open(outj))
             for key in ('coverages', 'analyses', 'stats', 'hits', 'hitseqs'):
                 check(out[key] == ref[key], '%s -H sieve=%s: %s differ from '
-                      'the numpy hit path' % (name, sieve, key))
+                      'the hit path on the CPU' % (name, sieve, key))
             with open(outx, 'rb') as f:
                 check(f.read() == ref_records, '%s -x sieve=%s: extracted '
-                      'records differ from the numpy hit path' % (name, sieve))
+                      'records differ from the hit path on the CPU'
+                      % (name, sieve))
         say('e', '%s -H -x: json (coverages, analyses, stats, %d hits) and '
-            'the %d bytes of extracted records equal the numpy hit path '
-            '(sieve off and on)' % (name, len(ref['hits']), len(ref_records)))
+            'the %d bytes of extracted records equal the hit path on the '
+            'CPU (sieve off and on)' % (name, len(ref['hits']),
+                                        len(ref_records)))
 
     fq = os.path.join('tests', 'fastqs', 'N0116_1_hits_1k.fastq')
     outj = os.path.join(WORK, 'profile.json')
@@ -908,7 +959,11 @@ def main():
         'source': 'kvarq_tpu_torch/csrc/cand_screen.cu',
         'replaces': 'kvarq_tpu/engine/pallas_scan.py:151',
         'launches': launches, 'launches_by_path': by_path,
-        'max_abs_err': err, 'ms': k_ms, 'plain_ms': ref_ms}]}), flush=True)
+        'max_abs_err': err, 'ms': k_ms, 'plain_ms': ref_ms,
+        'bound_ms': k1b['bound_ms'], 'bound_by': k1b['bound_by'],
+        # no single PyTorch call computes the screen; matmul_ms is the fp16
+        # one-hot product alone, as context
+        'library_ms': None, 'matmul_ms': mm_ms}]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,
         'count': torch.cuda.device_count()}}), flush=True)

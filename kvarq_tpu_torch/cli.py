@@ -1,64 +1,145 @@
 '''
-The ``kvarq`` command line of the port: ``python -m kvarq_tpu_torch.cli``.
+The ``kvarq`` command line of the port: ``python -m kvarq_tpu_torch.cli``
+(a copy of kvarq_tpu/cli.py with the port's engine behind it).
 
-The parser is kvarq_tpu's own (``kvarq_tpu.cli._COMMANDS`` /
-``_GLOBAL_ARGS``) with ``scan`` rebound to :py:func:`cmd_scan`, which
-runs the port's engine on a CUDA device (``--backend cuda``, the default)
-or on the CPU (``--backend cpu``).  Subcommands that read result files
-(``illustrate``, ``show``, ``update``, ``summarize``, ``info``,
-``version``, ``explorer``) are reused as they are; ``gui`` is not yet
-ported and exits with a message.  ``-H``/``-x`` run the hit-list scan;
+The whole surface is declared as a data table (``_COMMANDS``) from which
+the argparse parser is generated.  ``scan`` (:py:func:`cmd_scan`) runs the
+port's engine on a CUDA device (``--backend cuda``, the default) or on the
+CPU (``--backend cpu``); ``-H``/``-x`` run the hit-list scan;
 ``--profile`` records phase times and a torch.profiler trace
 (kvarq_tpu_torch.profiling); ``--mesh`` shards either path over a
 ``('data', 'bank')`` device mesh (kvarq_tpu_torch.parallel).  ``batch``
 (:py:func:`cmd_batch`) scans a corpus, sharded over the processes of a
 Gloo group (kvarq_tpu_torch.parallel.multihost) and the devices of each.
+``illustrate``, ``show``, ``update``, ``summarize``, ``info`` and
+``version`` read and write result files as kvarq_tpu's do; ``gui`` and
+``explorer`` are not yet ported and exit with a message.
 '''
 
 import argparse
 import json
 import os
+import os.path
 import sys
+import threading
 import time
+from pprint import pprint
 
-from kvarq_tpu import cli as kcli
-from kvarq_tpu.fastq import Fastq, FastqFileFormatException
-from kvarq_tpu.log import (appendlog, format_traceback, lo, set_debug,
-                           set_warning)
-from kvarq_tpu.util import JsonSummary, ProgressBar, get_help_path
-from kvarq_tpu_torch import analyse, device, engine, parallel
+from kvarq_tpu_torch import VERSION, analyse, device, engine, genes, parallel
+from kvarq_tpu_torch.config import default_config
+from kvarq_tpu_torch.fastq import Fastq, FastqFileFormatException
+from kvarq_tpu_torch.log import (appendlog, format_traceback, lo, set_debug,
+                                 set_warning)
 from kvarq_tpu_torch.parallel import multihost
 from kvarq_tpu_torch.profiling import ScanProfiler
+from kvarq_tpu_torch.testsuites import (discover_testsuites, load_testsuites,
+                                        update_testsuites)
+from kvarq_tpu_torch.util import (JsonSummary, ProgressBar, TextHist,
+                                  get_help_path, json_dump)
+
+# exit codes (reference cli.py:25-27)
+ERROR_COMMAND_LINE_SWITCH = -1
+ERROR_FASTQ_FORMAT_ERROR = -2
+ERROR_FILE_EXISTS = -3
 
 BACKENDS = ('cuda', 'cpu')
 
 
+# --- shared helpers ---------------------------------------------------------
+
+def _registry(args):
+    return discover_testsuites(args.testsuite_directory or [])
+
+
+def _selected_testsuites(args):
+    ''' the testsuites requested via -L / -l against the discovery
+        registry '''
+    registry = _registry(args)
+    selection = registry.keys() if args.select_all else (args.select or [])
+    return load_testsuites(registry, selection)
+
+
+def _testsuites_from_json(args, data):
+    ''' re-load (version-checked) the testsuites recorded in a result
+        file '''
+    testsuites = {}
+    update_testsuites(testsuites, data['info']['testsuites'],
+                      _registry(args))
+    return testsuites
+
+
+def _refuse_overwrite(path):
+    if os.path.exists(path):
+        lo.error('will not overwrite file ' + path)
+        sys.exit(ERROR_FILE_EXISTS)
+
+
+def _write_result(data, path):
+    with open(path, 'w', encoding='utf-8') as fd:
+        json_dump(data, fd)
+
+
+# --- scan -------------------------------------------------------------------
+
 def _refuse(what):
     sys.stderr.write('\n*** %s is not yet ported to kvarq_tpu_torch; use '
                      'python -m kvarq_tpu.cli ***\n\n' % what)
-    sys.exit(kcli.ERROR_COMMAND_LINE_SWITCH)
+    sys.exit(ERROR_COMMAND_LINE_SWITCH)
 
 
-class ScanSession(kcli.ScanSession):
+class ScanSession:
 
-    ''' kvarq_tpu's scan session (worker thread plus progress and <CTRL-C>
-        handling), polling the port's engine; the worker runs the scan
-        inside ``prof.trace()`` (torch.profiler records the thread that
-        starts it) '''
+    '''
+    drives one scan: the Analyser runs on a worker thread (inside the
+    profiler's trace, a no-op without ``--profile``) while the main
+    thread polls ``engine.stats()`` once a second for the progress bar and
+    for <CTRL-C> handling (one press prints histograms, two presses within
+    2 s abort the scan and keep the partial results) -- reference
+    cli.py:106-186
+    '''
 
     def __init__(self, analyser, fastq, testsuites, args, prof):
-        super().__init__(analyser, fastq, testsuites, args)
+        self.analyser = analyser
+        self.fastq = fastq
+        self.testsuites = testsuites
+        self.args = args
+        self.error = None
+        self.error_tb = None
         self.prof = prof
+        self.worker = threading.Thread(target=self._work,
+                                       name='analyse-thread')
 
     def _work(self):
-        # the scan's own errors are caught by kvarq_tpu's _work; this
-        # catches the trace's
+        # torch.profiler records the thread that starts it: the worker
+        # runs the scan inside ``prof.trace()``
         try:
             with self.prof.trace():
-                super()._work()
+                self._scan()
         except Exception as e:
             self.error = e
             self.error_tb = format_traceback(sys.exc_info())
+
+    def _scan(self):
+        try:
+            self.analyser.spacing = self.args.spacing
+            # the hit list is only materialized for -H / --extract-hits;
+            # otherwise coverage is accumulated fully on device
+            keep_hits = bool(self.args.hits or self.args.extract_hits)
+            self.analyser.scan(self.fastq, self.testsuites,
+                               do_reverse=not self.args.no_reverse,
+                               keep_hits=keep_hits)
+        except Exception as e:
+            self.error = e
+            self.error_tb = format_traceback(sys.exc_info())
+
+    def _print_histograms(self, stats):
+        print()
+        print(TextHist(title='readlengths').draw(
+            list(stats['readlengths']), indexed=True))
+        means = sorted(n / len(self.analyser[i])
+                       for i, n in enumerate(stats['nseqbasehits']))
+        print()
+        print(TextHist(title='mean coverages').draw(means, indexed=False))
 
     def run(self):
         ''' :returns: final ``engine.stats()`` (partial when aborted) '''
@@ -75,9 +156,11 @@ class ScanSession(kcli.ScanSession):
             stats = engine.stats()
             if not stats['records_parsed']:
                 continue
+
             if self.args.progress:
                 bar.update(stats['progress'])
                 sys.stderr.write(str(bar))
+
             if stats['sigints'] > sigints_seen:
                 if time.time() - last_sigint < 2.:
                     sys.stderr.write('\n\n*** caught multiple <CTRL-C> '
@@ -92,14 +175,14 @@ class ScanSession(kcli.ScanSession):
         if self.error is not None:
             lo.error('could not scan %s : %s [%s]'
                      % (self.args.fastq, str(self.error), self.error_tb))
-            sys.exit(kcli.ERROR_FASTQ_FORMAT_ERROR)
+            sys.exit(ERROR_FASTQ_FORMAT_ERROR)
         sys.stderr.write('\n')
         return engine.stats()
 
 
 def _fail(msg):
     sys.stderr.write('\n*** %s ***\n\n' % msg)
-    sys.exit(kcli.ERROR_COMMAND_LINE_SWITCH)
+    sys.exit(ERROR_COMMAND_LINE_SWITCH)
 
 
 def _backend(args):
@@ -116,11 +199,11 @@ def _backend(args):
 
 
 def _testsuites(args):
-    testsuites = kcli._selected_testsuites(args)
+    testsuites = _selected_testsuites(args)
     if not testsuites:
         sys.stderr.write('\n*** you must specify at least one testsuite!'
                          ' ***\n\n(use the -t command line switch)\n\n')
-        sys.exit(kcli.ERROR_COMMAND_LINE_SWITCH)
+        sys.exit(ERROR_COMMAND_LINE_SWITCH)
     return testsuites
 
 
@@ -140,7 +223,7 @@ def cmd_scan(args):
                       variant=args.variant)
     except FastqFileFormatException as e:
         lo.error('cannot open file %s : %s' % (args.fastq, str(e)))
-        sys.exit(kcli.ERROR_FASTQ_FORMAT_ERROR)
+        sys.exit(ERROR_FASTQ_FORMAT_ERROR)
 
     engine.config(nthreads=args.threads,
                   maxerrors=args.errors,
@@ -155,9 +238,9 @@ def cmd_scan(args):
         engine.config(mesh=mesh)
 
     if not args.force:
-        kcli._refuse_overwrite(args.json)
+        _refuse_overwrite(args.json)
         if args.extract_hits:
-            kcli._refuse_overwrite(args.extract_hits)
+            _refuse_overwrite(args.extract_hits)
 
     lo.info('scanning {} ({}) on {}...'.format(
         ', '.join(fastq.filenames()),
@@ -185,7 +268,7 @@ def cmd_scan(args):
         analyser.phases = prof.stop()
         lo.info('phases: %s' % ' '.join(
             '%s=%.3fs' % kv for kv in sorted(prof.phases.items())))
-    kcli._write_result(analyser.encode(hits=args.hits), args.json)
+    _write_result(analyser.encode(hits=args.hits), args.json)
     if args.extract_hits:
         analyser.extract_hits(args.extract_hits)
 
@@ -195,8 +278,7 @@ def cmd_scan(args):
 def pair_fastqs(fastqs):
     ''' sort the files and merge ``X_1.fastq``/``X_2.fastq`` neighbours
         into single paired scans; :returns: ``(files, paired_flags)``.
-        (A copy of ``kvarq_tpu.gui.simple.pair_fastqs``, whose module
-        needs tkinter.) '''
+        (A copy of ``kvarq_tpu.gui.simple.pair_fastqs``.) '''
     ordered = sorted(fastqs)
     files, paired = [], []
     i = 0
@@ -229,7 +311,7 @@ def cmd_batch(args):
         fastq0 = Fastq(args.fastq[0], paired=False, variant=args.variant)
     except FastqFileFormatException as e:
         lo.error('cannot open file %s : %s' % (args.fastq[0], str(e)))
-        sys.exit(kcli.ERROR_FASTQ_FORMAT_ERROR)
+        sys.exit(ERROR_FASTQ_FORMAT_ERROR)
 
     engine.config(nthreads=args.threads,
                   maxerrors=args.errors,
@@ -242,10 +324,10 @@ def cmd_batch(args):
         _batch_per_sample(args, testsuites)
         return
     if not args.force:
-        kcli._refuse_overwrite(args.json)
+        _refuse_overwrite(args.json)
 
-    from kvarq_tpu.engine import reader
-    from kvarq_tpu.engine.tensor_scan import fold_into_coverage
+    from kvarq_tpu_torch.engine import reader
+    from kvarq_tpu_torch.engine.tensor_scan import fold_into_coverage
     pid, nproc = multihost.initialize()
     lo.info('batch scan: %d files over %d process(es)'
             % (len(args.fastq), nproc))
@@ -297,7 +379,7 @@ def cmd_batch(args):
                analyser.stats['parsed'] // 1024 ** 2, analyser.scantime))
     analyser.update_testsuites()
     if pid == 0:
-        kcli._write_result(analyser.encode(), args.json)
+        _write_result(analyser.encode(), args.json)
     else:
         lo.info('process %d: results identical to process 0; not writing'
                 % pid)
@@ -350,7 +432,7 @@ def _batch_per_sample(args, testsuites):
 
     if not args.force and not args.resume:
         for out in outs:
-            kcli._refuse_overwrite(out)
+            _refuse_overwrite(out)
 
     # by index, so that a file listed twice is scanned once per listing
     # (kvarq_tpu's assignment by name gives both listings to every process
@@ -379,7 +461,7 @@ def _batch_per_sample(args, testsuites):
             continue
         analyser.update_testsuites()
         tmp = out + '.tmp'
-        kcli._write_result(analyser.encode(), tmp)
+        _write_result(analyser.encode(), tmp)
         os.replace(tmp, out)
         scanned += 1
         lo.info('%s: %d records in %.3fs -> %s'
@@ -403,13 +485,337 @@ def _batch_per_sample(args, testsuites):
             summary.dump(fd)
         lo.info('summary: %s' % spath)
     if failed:
-        sys.exit(kcli.ERROR_FASTQ_FORMAT_ERROR)
+        sys.exit(ERROR_FASTQ_FORMAT_ERROR)
 
 
 def _not_ported(name):
     def handler(args):
         _refuse(name)
     return handler
+
+
+# --- other commands ---------------------------------------------------------
+
+def cmd_version(args):
+    print(VERSION)
+
+
+def cmd_show(args):
+    fastq = Fastq(args.file)
+
+    if args.quality:
+        lo.info('determining readlengths with quality>=%d of %s '
+                'by reading %d records at %d points'
+                % (args.quality, args.file, args.number, args.points))
+        trimmed = fastq.lengths(fastq.Q2A(args.quality),
+                                n=args.number, points=args.points)
+        print(TextHist().draw(sorted(trimmed)))
+
+    if args.info:
+        print('dQ=' + str(fastq.dQ))
+        print('variants=' + str(fastq.variants))
+        print('readlength=' + str(fastq.readlength))
+        print('records_approx=' + str(fastq.records_approx or '?'))
+
+
+def cmd_update(args):
+    if args.fastq:
+        lo.warning('re-reading of hits not currently implemented')
+
+    with open(args.json) as fd:
+        data = json.load(fd)
+    testsuites = _testsuites_from_json(args, data)
+
+    analyser = analyse.Analyser()
+    analyser.decode(testsuites, data)
+    analyser.update_testsuites()
+
+    lo.info('re-wrote results to file ' + args.json)
+    with open(args.json, 'w', encoding='utf-8') as fd:
+        json.dump(analyser.encode(hits=analyser.hits is not None), fd,
+                  indent=2)
+
+
+def cmd_summarize(args):
+    summary = JsonSummary()
+    for fname in args.json:
+        lo.info('processing ' + fname)
+        summary.add(fname)
+    summary.dump()
+
+
+def cmd_illustrate(args):
+    with open(args.file) as fd:
+        data = json.load(fd)
+    testsuites = _testsuites_from_json(args, data)
+
+    analyser = analyse.Analyser()
+    lo.info('loading json-file ' + args.file)
+    analyser.decode(testsuites, data)
+    lo.info('updating testsuites')
+    analyser.update_testsuites()
+
+    if args.readlengths:
+        print(TextHist().draw(analyser.stats['readlengths'], indexed=True))
+
+    if args.coverage:
+        for name, testsuite in analyser.testsuites.items():
+            print(name + ':')
+            for test in testsuite.tests:
+                print('  - %s : %s' % (test, analyser[test]))
+            print()
+
+    if args.results:
+        for name, results in analyser.results.items():
+            print('\n' + name)
+            print('-' * len(name))
+            pprint(results)
+
+
+def cmd_info(args):
+    testsuites = _selected_testsuites(args)
+
+    print('version=' + VERSION)
+    descriptions = []
+    total_bp = total_tests = 0
+    for name, testsuite in testsuites.items():
+        bp = 0
+        for test in testsuite.tests:
+            if isinstance(test.template, genes.DynamicTemplate):
+                bp += len(test.template.seq(spacing=args.spacing))
+            else:
+                bp += len(test.template.seq())
+        descriptions.append('%s-%s[%d:%dbp]'
+                            % (name, testsuite.version,
+                               len(testsuite.tests), bp))
+        total_bp += bp
+        total_tests += len(testsuite.tests)
+    print('testsuites=' + ','.join(descriptions))
+    print('sum=%d tests,%dbp' % (total_tests, total_bp))
+    print('sys.prefix=' + sys.prefix)
+
+
+# --- command table ----------------------------------------------------------
+
+def _arg(*names, **kwargs):
+    return names, kwargs
+
+
+def _testsuite_selection_args():
+    return [
+        _arg('-L', '--select-all', action='store_true',
+             help='load all discovered testsuites'),
+        _arg('-l', '--select', action='append',
+             help='name of a testsuite ("MTBC/phylo"), a group ("MTBC"), '
+                  'or the path of a testsuite .py file'),
+    ]
+
+
+def _spacing_arg():
+    return _arg('-s', '--spacing', action='store', type=int,
+                default=default_config['spacing'],
+                help='default flank length on both sides of templates '
+                     'generated from genome (default=%d)'
+                     % default_config['spacing'])
+
+
+_GLOBAL_ARGS = [
+    _arg('-d', '--debug', action='store_true',
+         help='output log information at a debug level'),
+    _arg('-q', '--quiet', action='store_true',
+         help='only output warnings/errors to stderr/log'),
+    _arg('-x', '--excepthook', action='store_true',
+         help='catch exception and launch debugger'),
+    _arg('-l', '--log',
+         help='append log to specified file (similar to redirecting '
+              'stderr, but without progress bar)'),
+    _arg('-t', '--testsuite-directory', action='append',
+         help='specify a directory that contains subdirectories from '
+              'which testsuites can be loaded; these are added to the '
+              'pool of testsuites that can later be selected (scan, info) '
+              'or that are autoloaded (illustrate, explore, update)'),
+]
+
+# (name, parser kwargs, handler, [argument specs])
+_COMMANDS = [
+
+    ('version', dict(help='show version info'), cmd_version, []),
+
+    ('scan', {}, cmd_scan, [
+        _arg('-p', '--progress', action='store_true',
+             help='shows progress bar on stdout while scanning'),
+        # accepted but without effect, exactly like the reference: the
+        # flag is declared (cli.py:399-400) yet never read -- use `kvarq
+        # update` to recompute analyses from a previous scan's coverages
+        _arg('-S', '--no-scan', action='store_true',
+             help='instead of scanning the original file, the provided '
+                  '.json file from a previous scan result is used'),
+        *_testsuite_selection_args(),
+        _arg('-t', '--threads', action='store', type=int,
+             default=default_config['threads'],
+             help='number of threads for concurrent scanning (default: %d)'
+                  % default_config['threads']),
+        _arg('-Q', '--quality', action='store', type=int,
+             default=default_config['quality'],
+             help='discard nucleotides with Q score inferior to this '
+                  'value (default=%d; i.e. p=0.05)'
+                  % default_config['quality']),
+        _arg('-e', '--errors', action='store', type=int,
+             default=default_config['errors'],
+             help='maximal number of errors allowed when comparing base '
+                  'sequences (default=%d)' % default_config['errors']),
+        _arg('-r', '--readlength', action='store', type=int,
+             default=default_config['minimum readlength'],
+             help='minimum read length (default=%d)'
+                  % default_config['minimum readlength']),
+        _arg('-o', '--overlap', action='store', type=int,
+             default=default_config['minimum overlap'],
+             help='minimum read overlap (default=%d)'
+                  % default_config['minimum overlap']),
+        _spacing_arg(),
+        _arg('-1', '--no-reverse', action='store_true',
+             help='do not scan for hits in reverse strand'),
+        _arg('-P', '--no-paired', action='store_true',
+             help='ignore paired file -- by default, the file '
+                  '"strain_2.fastq[.gz]" is also read if '
+                  '"strain_1.fastq[.gz]" is specified'),
+        _arg('--variant', choices=list(Fastq.vendor_variants.keys()),
+             help='specify .fastq variant manually in case heuristic '
+                  'determination fails'),
+        # kvarq_tpu's backend names parse too, so that cmd_scan can say
+        # why they are refused
+        _arg('--backend',
+             choices=list(BACKENDS) + ['auto', 'numpy', 'xla', 'pallas'],
+             help='compute device of the port: cuda (default) or cpu'),
+        _arg('--mesh',
+             help='scan sharded over a device mesh: "auto" (every card on '
+                  'the data axis) or "NDxNB" for an explicit (data, bank) '
+                  'shape, e.g. "2x2"; with -H/-x the candidate screen runs '
+                  'sharded'),
+        _arg('--profile', metavar='DIR',
+             help='record per-phase wall times into the result json '
+                  '(info.phases) and write a torch.profiler trace of the '
+                  'host and the card to DIR'),
+        _arg('-f', '--force', action='store_true',
+             help='overwrite any existing .json file'),
+        _arg('-H', '--hits', action='store_true',
+             help='saves all hits in .json file'),
+        _arg('-x', '--extract_hits',
+             help='stores the fastq records of all hits in specified '
+                  'file'),
+        _arg('fastq', help='name of .fastq file to scan'),
+        _arg('json', help='name of .json file to where results are '
+                          'stored (or loaded, see -S)'),
+    ]),
+
+    ('batch', dict(
+        help='scan a corpus of .fastq files, sharded over all hosts and '
+             'chips: ONE merged result .json by default, or one .json per '
+             'sample plus summary.csv with --per-sample (kvarq_tpu '
+             'extension: first-class replacement for looping "kvarq scan" '
+             'in a shell and merging with "summarize")'),
+     cmd_batch, [
+        *_testsuite_selection_args(),
+        _arg('--per-sample', action='store_true',
+             help='treat every input as a separate sample: write one '
+                  'result .json per sample (plus summary.csv) into the '
+                  'JSON output *directory* instead of one merged result'),
+        _arg('--resume', action='store_true',
+             help='with --per-sample: skip samples whose result .json '
+                  'already exists and is valid (restart an interrupted '
+                  'batch where it stopped)'),
+        _arg('-P', '--no-paired', action='store_true',
+             help='with --per-sample: do not merge X_1/X_2 .fastq '
+                  'neighbors into single paired scans'),
+        _arg('-t', '--threads', action='store', type=int,
+             default=default_config['threads'],
+             help='number of reader threads per host (default: %d)'
+                  % default_config['threads']),
+        _arg('-Q', '--quality', action='store', type=int,
+             default=default_config['quality'],
+             help='discard nucleotides with Q score inferior to this '
+                  'value (default=%d)' % default_config['quality']),
+        _arg('-e', '--errors', action='store', type=int,
+             default=default_config['errors'],
+             help='maximal number of errors allowed when comparing base '
+                  'sequences (default=%d)' % default_config['errors']),
+        _arg('-r', '--readlength', action='store', type=int,
+             default=default_config['minimum readlength'],
+             help='minimum read length (default=%d)'
+                  % default_config['minimum readlength']),
+        _arg('-o', '--overlap', action='store', type=int,
+             default=default_config['minimum overlap'],
+             help='minimum read overlap (default=%d)'
+                  % default_config['minimum overlap']),
+        _spacing_arg(),
+        _arg('-1', '--no-reverse', action='store_true',
+             help='do not scan for hits in reverse strand'),
+        _arg('--variant', choices=list(Fastq.vendor_variants.keys()),
+             help='specify .fastq variant manually (inferred from the '
+                  'first file otherwise)'),
+        _arg('-f', '--force', action='store_true',
+             help='overwrite any existing .json file'),
+        _arg('fastq', nargs='+', help='the .fastq file corpus to scan'),
+        _arg('json', help='name of the merged result .json file'),
+        _arg('--backend', choices=BACKENDS,
+             help='compute device of the port: cuda (default) or cpu'),
+    ]),
+
+    ('update', dict(
+        help='update (re-calculate) testsuites based on coverages saved '
+             'in .json file; result is stored in same file'),
+     cmd_update, [
+        _arg('json', help='name of .json file to update'),
+        _arg('fastq', nargs='?',
+             help='also re-calculate coverages with .fastq file '
+                  'specified'),
+    ]),
+
+    ('show', dict(help='show some information about a .fastq file'),
+     cmd_show, [
+        _arg('-n', '--number', action='store', default=10000, type=int,
+             help='number of records to read (applies to -Q)'),
+        _arg('-p', '--points', action='store', default=10, type=int,
+             help='number of points in file where to sample'),
+        _arg('-Q', '--quality', action='store', default=0, type=int,
+             help='show histogram of readlengths with given quality '
+                  'cutoff'),
+        _arg('-i', '--info', action='store_true',
+             help='output some information about FastQ file'),
+        _arg('file', help='name of .fastq file to analyze'),
+    ]),
+
+    ('summarize', dict(
+        help='reads several .json files and summarizes the results to '
+             'standard output in .csv format'),
+     cmd_summarize, [
+        _arg('json', nargs='+', help='input .json files'),
+    ]),
+
+    ('illustrate', dict(
+        help='illustrate some information contained in a .json file'),
+     cmd_illustrate, [
+        _arg('-l', '--readlengths', action='store_true',
+             help='show a histogram of readlengths'),
+        _arg('-c', '--coverage', action='store_true',
+             help='show tests/coverages sorted by testsuite'),
+        _arg('-r', '--results', action='count',
+             help='shows results of analyses'),
+        _arg('file', help='name of .json file to illustrate'),
+    ]),
+
+    ('gui', dict(help='start GUI'), _not_ported('gui'), []),
+
+    ('info', dict(help='show infos about kvarq'), cmd_info, [
+        *_testsuite_selection_args(),
+        _spacing_arg(),
+    ]),
+
+    ('explorer', dict(help='launches the directory/json explorer'),
+     _not_ported('explorer'), [
+        _arg('explorable', help='directory/.json file to explore'),
+    ]),
+]
 
 
 def build_parser():
@@ -421,43 +827,35 @@ def build_parser():
             additional see %s
 
         ''' % get_help_path())
-    for names, kwargs in kcli._GLOBAL_ARGS:
+    for names, kwargs in _GLOBAL_ARGS:
         parser.add_argument(*names, **kwargs)
 
-    handlers = {'scan': cmd_scan, 'batch': cmd_batch,
-                'gui': _not_ported('gui')}
     subparsers = parser.add_subparsers(help='main command to execute')
-    for name, parser_kwargs, handler, arguments in kcli._COMMANDS:
+    for name, parser_kwargs, handler, arguments in _COMMANDS:
         sub = subparsers.add_parser(name, **parser_kwargs)
-        sub.set_defaults(func=handlers.get(name, handler))
+        sub.set_defaults(func=handler)
         for names, kwargs in arguments:
-            if '--backend' in names:
-                # every kvarq_tpu backend name parses, so that cmd_scan can
-                # say why it is refused
-                kwargs = dict(
-                    kwargs, choices=list(BACKENDS) + list(kwargs['choices']),
-                    help='compute device of the port: cuda (default) or '
-                         'cpu')
-            elif '--profile' in names:
-                kwargs = dict(
-                    kwargs, help='record per-phase wall times into the '
-                    'result json (info.phases) and write a torch.profiler '
-                    'trace of the host and the card to DIR')
-            elif '--mesh' in names:
-                kwargs = dict(
-                    kwargs, help='scan sharded over a device mesh: "auto" '
-                    '(every card on the data axis) or "NDxNB" for an '
-                    'explicit (data, bank) shape, e.g. "2x2"; with -H/-x the '
-                    'candidate screen runs sharded')
             sub.add_argument(*names, **kwargs)
-        if name == 'batch':
-            sub.add_argument('--backend', choices=BACKENDS,
-                             help='compute device of the port: cuda '
-                                  '(default) or cpu')
     return parser
 
 
 parser = build_parser()
+
+
+def _debugger_excepthook(type_, value, tb):
+    ''' drop into pdb post-mortem on uncaught exceptions (-x flag) '''
+    if hasattr(sys, 'ps1') or not sys.stderr.isatty():
+        sys.__excepthook__(type_, value, tb)
+        return
+    import pdb
+    import traceback
+    traceback.print_exception(type_, value, tb)
+    print()
+    pdb.post_mortem(tb)
+
+
+# backwards-compatible alias (reference cli.py:35-43)
+traceit = _debugger_excepthook
 
 
 def main(argv=None):
@@ -472,11 +870,11 @@ def main(argv=None):
     if args.log:
         appendlog(args.log)
     if args.excepthook:
-        sys.excepthook = kcli._debugger_excepthook
+        sys.excepthook = _debugger_excepthook
 
     if not hasattr(args, 'func'):
         parser.print_usage()
-        sys.exit(kcli.ERROR_COMMAND_LINE_SWITCH)
+        sys.exit(ERROR_COMMAND_LINE_SWITCH)
     args.func(args)
 
 

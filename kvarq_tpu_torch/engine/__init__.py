@@ -1,13 +1,15 @@
 '''
 Scan-engine API of the port (counterpart of kvarq_tpu/engine/__init__.py):
-:py:func:`config` / :py:func:`get_config`, :py:func:`stats`,
-:py:func:`stop`, :py:func:`install_sigint_counter`, the coverage scan
-:py:func:`countseqs` and the hit-list scan :py:func:`findseqs` (with
-kvarq_tpu's :py:data:`Hit`).  The module keeps its own configuration and
-scan state; ``kvarq_tpu.engine`` is not touched.
+:py:data:`Hit`, :py:func:`config` / :py:func:`get_config`,
+:py:func:`stats`, :py:func:`stop`, :py:func:`install_sigint_counter`, the
+coverage scan :py:func:`countseqs` and the hit-list scan
+:py:func:`findseqs`.  The module keeps its own configuration and scan
+state.
 
-The host input pipeline (native C++ reader, k-mer sieve) is shared with
-kvarq_tpu by import.  The device steps are
+The host input pipeline is the port's copy of kvarq_tpu's: the native
+C++ reader (:py:mod:`~kvarq_tpu_torch.engine.reader`,
+:py:mod:`~kvarq_tpu_torch.engine.native`) and the k-mer sieve
+(:py:mod:`~kvarq_tpu_torch.engine.sieve`).  The device steps are
 :py:class:`kvarq_tpu_torch.engine.tensor_scan.TensorScanner` (coverage)
 and the matchers of :py:mod:`kvarq_tpu_torch.engine.match_pallas` (on
 the card: candidate screen, then exact extraction) and
@@ -16,16 +18,30 @@ alone); with a ``mesh`` configured, their sharded counterparts in
 :py:mod:`kvarq_tpu_torch.parallel`.
 '''
 
+import collections
 import contextlib
+import functools
 import os
 import threading
 
 import numpy as np
 
-# the JAX package's namedtuple (jax-free): Analyser.decode and result json
-# equality rely on the one type
-from kvarq_tpu.engine import Hit, reader  # noqa: F401
-from kvarq_tpu.log import lo
+from kvarq_tpu_torch.engine import reader
+from kvarq_tpu_torch.log import lo
+
+Hit = collections.namedtuple(
+    'Hit', 'seq_nr file_pos seq_pos length readlength')
+Hit.__doc__ += (
+    '''
+seq_nr : refers to the list of sequences in call to engine.findseqs
+file_pos : beginning of read (within decompressed data)
+seq_pos : places the beginning of the read relative to the beginning of
+    the sequence (<0 if read overlaps only with beginning of sequence or
+    read contains whole sequence; >0 if read overlaps only with end of
+    sequence or read is contained within sequence)
+length : gives the number of overlapping basepairs
+readlength : length of the (quality trimmed) read containing the hit
+''')
 
 # engine configuration (defaults match workhorse.c:71-76)
 _config = {
@@ -120,14 +136,19 @@ def stats():
     }
 
 
+@functools.lru_cache(maxsize=4)
+def _cached_sieve(seqs_key, maxerrors, minoverlap, minreadlength):
+    from kvarq_tpu_torch.engine.sieve import KmerSieve
+    return KmerSieve.build(list(seqs_key), maxerrors, minoverlap,
+                           minreadlength)
+
+
 def _make_sieve(seqs):
     mode = _extra_config['sieve']
     if mode in (False, 'off', '0', 'no'):
         return None
-    # kvarq_tpu's cache of built sieves (a pure function of its
-    # arguments): one table of up to 5^12 entries per configuration,
-    # shared by both packages in one process
-    from kvarq_tpu.engine import _cached_sieve
+    # built sieves are cached (a pure function of the arguments, immutable
+    # after the build): repeated scans of one bank reuse the index
     sieve = _cached_sieve(tuple(seqs), _config['maxerrors'],
                           _config['minoverlap'], _config['minreadlength'])
     if sieve is None and mode != 'auto':
@@ -158,7 +179,7 @@ def _scan(name, nseqs):
 def _batches(fnames, sieve):
     ''' the shared reader's batches under the current configuration;
         malformed input raises FastqFileFormatException '''
-    from kvarq_tpu.fastq import FastqFileFormatException
+    from kvarq_tpu_torch.fastq import FastqFileFormatException
     try:
         yield from reader.prefetch(reader.batches(
             fnames, ord(_config['Amin']), _config['minreadlength'], _stats,
@@ -201,8 +222,9 @@ def countseqs(fname, seqs):
     '''
     tensorized scan: accumulates per-template base counts on the device
     (no hit list).  Statistics are those of :py:func:`findseqs`;
-    :py:func:`kvarq_tpu.engine.tensor_scan.fold_into_coverage` maps the
-    base counts onto :py:class:`~kvarq_tpu.analyse.Coverage` objects.
+    :py:func:`kvarq_tpu_torch.engine.tensor_scan.fold_into_coverage` maps
+    the base counts onto :py:class:`~kvarq_tpu_torch.analyse.Coverage`
+    objects.
 
     :returns: dict with ``basecounts`` (list of [5, S] int64 arrays in
         scanned-strand coordinates, parallel to ``seqs``) and ``stats``

@@ -4,8 +4,9 @@ kvarq_tpu/engine/match_xla.py ``XlaMatcher``, device item X4): every
 passing ``(read, template, shift)`` triplet of a batch.
 
 It builds on the scanner's own bank state
-(:py:func:`kvarq_tpu_torch.engine.pallas_scan.device_arrays`, the shared
-``_Bank`` with minoverlap gaps), so a shift column ``q`` carries its
+(:py:func:`kvarq_tpu_torch.engine.pallas_scan.device_arrays` of a
+:py:class:`_Bank` with minoverlap gaps, the concatenated template bank of
+kvarq_tpu's module, copied here), so a shift column ``q`` carries its
 template in ``tseg[q]`` and its shift in ``qmeta[ROW_D, q]``.  A pass is
 the scanner's match product, :py:func:`mode_weights`, ``w > 0`` and
 ``torch.nonzero``; its triplets are copied to the host once.  Passes are
@@ -20,10 +21,71 @@ no counterpart: ``nonzero`` gives the pairs directly.
 import numpy as np
 import torch
 
-from kvarq_tpu.engine.pallas_scan import ROW_D, ROW_SEQL, ROW_VALID
-from kvarq_tpu.engine.tensor_scan import build_bank
-from kvarq_tpu_torch.engine import pallas_scan
+from kvarq_tpu_torch.engine import encode, pallas_scan
+from kvarq_tpu_torch.engine.pallas_scan import ROW_D, ROW_SEQL, ROW_VALID
 from kvarq_tpu_torch.engine.tensor_scan import mode_weights, score_rows
+
+
+class _Bank:
+    ''' concatenated template bank for a given read padding Lpad.
+
+        Gap between templates: with ``minoverlap`` given, the mode gating
+        (hitmodel) bounds any *passing* alignment's hang-off past either
+        template end by ``rl - minoverlap`` (modes A/B) or ``rl - seql``
+        (mode C full containment), so ``Lpad - min(minoverlap, S_left,
+        S_right)`` never-matching bases fully isolate neighbors while
+        shrinking the bank ~20% vs. the conservative ``Lpad`` clearance.
+        Shift columns below the left-hang bound carry no tid and are
+        gated out. '''
+
+    def __init__(self, seqs, Lpad, minoverlap=None):
+        self.Lpad = Lpad
+        self.minoverlap = minoverlap
+        codes = []
+        tstart = []
+        gaps = []
+        pos = 0
+        prev_S = None
+        for s in seqs:
+            if minoverlap is not None and minoverlap >= 1:
+                clear = min(minoverlap, max(len(s), 1))
+                if prev_S is not None:
+                    clear = min(clear, max(prev_S, 1))
+                gap = max(Lpad - clear, 0)
+            else:
+                gap = Lpad  # conservative clearance
+            prev_S = len(s)
+            gaps.append(gap)
+            pos += gap
+            tstart.append(pos)
+            c = encode.encode_template(s)
+            codes.append(np.full(gap, encode.CODE_TMPL_JUNK, dtype=np.uint8))
+            codes.append(c)
+            pos += len(c)
+        self.codes = np.concatenate(codes) if codes else \
+            np.zeros(0, dtype=np.uint8)
+        self.G = len(self.codes)
+        self.Q = self.G + Lpad - 1
+        self.tstart = tstart
+
+        # per-position maps: template id / shift d / template length; only
+        # shifts that can pass the mode gating (d >= -gap) carry a tid, so
+        # neighboring templates' ranges stay disjoint
+        tid = np.full(self.Q, -1, dtype=np.int32)
+        d_of = np.zeros(self.Q, dtype=np.int32)
+        seql_of = np.ones(self.Q, dtype=np.int32)
+        for t, (bs, gap, s) in enumerate(zip(tstart, gaps, seqs)):
+            S = len(s)
+            lowest = bs - gap          # leftmost passing read start
+            highest = bs + S - 1
+            qlo = lowest + (Lpad - 1)
+            qhi = highest + (Lpad - 1)
+            tid[qlo:qhi + 1] = t
+            d_of[qlo:qhi + 1] = np.arange(lowest, highest + 1) - bs
+            seql_of[qlo:qhi + 1] = S
+        self.tid = tid
+        self.d_of = d_of
+        self.seql_of = seql_of
 
 
 def _empty():
@@ -78,7 +140,7 @@ class XlaMatcher:
             ``Lpad`` and the reads per pass '''
         if Lpad not in self._ctx:
             state = pallas_scan.device_arrays(
-                build_bank(self.seqs, Lpad, self.minoverlap), len(self.seqs),
+                _Bank(self.seqs, Lpad, self.minoverlap), len(self.seqs),
                 self.device)
             self._ctx[Lpad] = (state, score_rows(self.device, state.Qp))
         return self._ctx[Lpad]

@@ -17,7 +17,7 @@ import subprocess
 import threading
 import time
 
-from kvarq_tpu.log import lo
+from kvarq_tpu_torch.log import lo
 
 HERE = os.path.abspath(os.path.dirname(__file__))
 CSRC = os.path.join(os.path.dirname(HERE), 'csrc')
@@ -29,7 +29,8 @@ _lock = threading.Lock()
 _libs = {}
 # seconds spent in nvcc per source (0.0 when a current build was found)
 build_seconds = {}
-# nvcc's -Xptxas -v report per source (registers, shared memory, spills)
+# nvcc's -Xptxas -v report per source (registers, shared memory, spills),
+# also of a build found in place
 ptxas_report = {}
 
 
@@ -58,6 +59,9 @@ def _build(name, lib_path, digest):
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError('nvcc failed on %s:\n%s' % (name, proc.stderr))
+    # the report first: a library that exists has its report beside it
+    with open(lib_path + '.ptxas.txt', 'w') as fd:
+        fd.write(proc.stderr.strip())
     os.replace(tmp, lib_path)
     build_seconds[name] = time.time() - t0
     ptxas_report[name] = proc.stderr.strip()
@@ -74,6 +78,10 @@ def load(name):
             BUILD, 'lib%s-%s.so' % (os.path.splitext(name)[0], digest))
         if os.path.exists(lib_path):
             build_seconds.setdefault(name, 0.0)
+            report = lib_path + '.ptxas.txt'
+            if os.path.exists(report):
+                with open(report) as fd:
+                    ptxas_report.setdefault(name, fd.read())
         else:
             _build(name, lib_path, digest)
         lib = ctypes.CDLL(lib_path)

@@ -3,10 +3,13 @@ Exhaustive scan step of the port (counterpart of
 kvarq_tpu/engine/pallas_scan.py): bank tensors, the candidate screen and
 the exact scoring of one batch of reads.
 
-- :py:func:`device_arrays` / :py:func:`state_from_numpy` build the
+- :py:func:`pack_qmeta` / :py:func:`pack_tseg` / :py:func:`bank_channels`
+  lay out the per-column metadata (copies of kvarq_tpu's numpy helpers);
+  :py:func:`device_arrays` / :py:func:`state_from_numpy` build the
   :py:class:`BankState` (im2col'd one-hot bank ``K``, padded bank bytes,
-  ``qmeta``, ``tseg``) from the shared :py:class:`~kvarq_tpu.engine.match_xla._Bank`
-  or from the JAX package's numpy bank state.
+  ``qmeta``, ``tseg``) from a
+  :py:class:`~kvarq_tpu_torch.engine.match_xla._Bank` or from the JAX
+  package's numpy bank state.
 - :py:func:`cand_counts` is the candidate screen: on a CUDA tensor it
   launches the hand-written kernel csrc/cand_screen.cu (the port of the
   TPU kernel ``_cand_kernel``), on a CPU tensor its plain version
@@ -30,11 +33,23 @@ import dataclasses
 import numpy as np
 import torch
 
-from kvarq_tpu.engine import encode
-from kvarq_tpu.engine.pallas_scan import (
-    BIG_RL_THRESHOLD, ROW_D, ROW_DM, ROW_OVC, ROW_SEQL, ROW_VALID,
-    bank_channels, pack_qmeta, pack_tseg)
-from kvarq_tpu_torch.engine import native_cuda
+from kvarq_tpu_torch.engine import encode, native_cuda
+
+# q-metadata row indices in the packed [8, Qp] int32 array.  Rows 0-2
+# feed the exact mode_weights recompute outside the kernel; rows 3-4 are
+# the kernel-side candidate-screen precomputations:
+# DM = min(d, 0) (the read-side offset of the overlap window) and
+# OVC = seql - max(0, d) (the column part of the overlap length), set to
+# -2^20 on invalid/padded columns so the overlap goes so negative that
+# the screen can never pass there.
+ROW_D, ROW_SEQL, ROW_VALID = 0, 1, 2
+ROW_DM, ROW_OVC = 3, 4
+INVALID_OVC = -(1 << 20)
+BIG_RL_THRESHOLD = 1 << 20
+
+# the JAX package's default column tile (pack_qmeta's padding when no Qp
+# is given)
+DEF_TQ = 2048
 
 # shift columns are padded to a multiple of the kernel's column tile
 QALIGN = 128
@@ -42,6 +57,49 @@ QALIGN = 128
 BANK_SENTINEL = 0xFE
 # largest Lpad whose match counts fp16 holds exactly (integers <= 2048)
 FP16_MAX_LPAD = 2048
+
+
+def _ceil_to(x, m):
+    return -(-x // m) * m
+
+
+def bank_channels(bank_codes):
+    ''' one-hot channels needed to match this bank exactly: 4 (ACGT) when
+        the bank is N-free -- read N one-hots to zero and thus mismatches,
+        which is exact since nothing in the bank could match it -- else
+        the full 5 '''
+    return encode.NBASE if (np.asarray(bank_codes) == encode.N).any() \
+        else encode.NBASE - 1
+
+
+def pack_qmeta(bank, TQ=DEF_TQ, Qp=None):
+    ''' pack per-shift-column metadata into one sublane-aligned [8, Qp]
+        int32 array (rows: see the ROW_* constants) '''
+    Q = bank.Q
+    if Qp is None:
+        Qp = max(_ceil_to(Q, TQ), TQ)
+    qmeta = np.zeros((8, Qp), dtype=np.int32)
+    qmeta[ROW_SEQL, :] = 1
+    qmeta[ROW_D, :Q] = bank.d_of
+    qmeta[ROW_SEQL, :Q] = bank.seql_of
+    valid = np.zeros(Qp, dtype=bool)
+    valid[:Q] = bank.tid >= 0
+    qmeta[ROW_VALID] = valid
+    # kernel-side candidate-screen precomputations (see ROW_DM, ROW_OVC)
+    qmeta[ROW_DM] = np.where(valid, np.minimum(0, qmeta[ROW_D]), 0)
+    qmeta[ROW_OVC] = np.where(
+        valid, qmeta[ROW_SEQL] - np.maximum(0, qmeta[ROW_D]), INVALID_OVC)
+    return qmeta
+
+
+def pack_tseg(bank, T, TQ=DEF_TQ, Qp=None):
+    ''' Q -> template-id segment map padded to Qp (invalid columns map to
+        the discard segment T) '''
+    if Qp is None:
+        Qp = max(_ceil_to(bank.Q, TQ), TQ)
+    tseg = np.full(Qp, T, dtype=np.int32)
+    tseg[:bank.Q] = np.where(bank.tid >= 0, bank.tid, T)
+    return tseg
 
 
 @dataclasses.dataclass
@@ -116,7 +174,7 @@ def _state(bpad, qmeta, tseg, Lpad, G, T, nch, device, K=None):
 
 
 def device_arrays(bank, T, device):
-    ''' :py:class:`BankState` of a shared ``_Bank`` on ``device``; shift
+    ''' :py:class:`BankState` of a ``_Bank`` on ``device``; shift
         columns padded to a multiple of :py:data:`QALIGN` '''
     qmeta = pack_qmeta(bank, QALIGN)
     Qp = qmeta.shape[1]

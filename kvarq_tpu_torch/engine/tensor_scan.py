@@ -1,20 +1,38 @@
 '''
 Scan driver of the port (counterpart of kvarq_tpu/engine/tensor_scan.py):
-the shared mode gating :py:func:`mode_weights` and the accumulating
-single-device :py:class:`TensorScanner`.
-
-The template bank layout (``build_bank``) and coverage folding into
-:py:class:`~kvarq_tpu.analyse.Coverage` are shared:
-:py:mod:`kvarq_tpu.engine.tensor_scan`.
+the mode gating :py:func:`mode_weights`, the accumulating single-device
+:py:class:`TensorScanner`, and copies of kvarq_tpu's numpy helpers
+:py:func:`build_bank`, :py:func:`default_gather_k` and
+:py:func:`fold_into_coverage` (base counts into a
+:py:class:`~kvarq_tpu_torch.analyse.Coverage`).
 '''
+
+import os
 
 import numpy as np
 import torch
 
-from kvarq_tpu.engine import encode
-from kvarq_tpu.engine.tensor_scan import build_bank, default_gather_k
-from kvarq_tpu.log import lo
-from kvarq_tpu_torch.engine import pallas_scan
+from kvarq_tpu_torch.engine import encode, pallas_scan
+from kvarq_tpu_torch.log import lo
+
+
+def build_bank(seqs, Lpad, minoverlap=None):
+    # imported here: match_xla imports this module
+    from kvarq_tpu_torch.engine.match_xla import _Bank
+    return _Bank(seqs, Lpad, minoverlap)
+
+
+def default_gather_k():
+    ''' resolve $KVARQ_GATHER_K: an explicit integer pins the compacted
+        exact-scoring width; ``auto`` (the default) starts at 768 (the JAX
+        package's value, tuned on its TPU) and lets TensorScanner adapt
+        upward when the observed candidate count overflows it '''
+    v = os.environ.get('KVARQ_GATHER_K', 'auto').strip().lower()
+    if v in ('', 'auto'):
+        return 768, True
+    if v in ('0', 'off', 'dense'):
+        return 0, False          # dense mode: no screen, exact full pass
+    return int(v), False
 
 
 def mode_weights(matches, rl_col, d_row, seql_row, valid_row,
@@ -220,3 +238,51 @@ class TensorScanner:
                 pos = tstart[t]
                 per_template[t] += acc[:, pos:pos + len(s)]
         return per_template
+
+
+# complement channel permutation: A<->T, C<->G, N->N (genes.py COMPLEMENT)
+COMPL_PERM = np.array([encode.T, encode.G, encode.C, encode.A, encode.N])
+
+# channel enumeration in sorted-character order 'ACGNT', so mutation strings
+# come out pre-sorted exactly like Coverage.serialize() emits them
+# (reference analyse.py:162-163 sorts the observed bases)
+_SORTED_CHANNELS = sorted(range(encode.NBASE), key=lambda c: encode.BASE_CHARS[c])
+
+
+def fold_into_coverage(cov, plus_bc, minus_bc):
+    '''
+    fill a :py:class:`kvarq_tpu_torch.analyse.Coverage` from tensorized base
+    counts: ``plus_bc``/``minus_bc`` are [5, S] hit-overlap base counts in
+    scanned-strand coordinates for the plus/minus template strands.
+
+    Reproduces Coverage.apply_hit (reference analyse.py:57-78): minus-strand
+    counts are mapped back to plus coordinates via index reversal + base
+    complement; depth is the channel sum; every read base differing from the
+    template base becomes a mutation entry.  Mutation strings are built in
+    sorted order -- in-memory ordering differs from the (observation-ordered)
+    hit path but serializes identically and all statistics
+    (bases_at/fractions_at/...) are order-insensitive.
+    '''
+    total = np.asarray(plus_bc, dtype=np.int64).copy()
+    if minus_bc is not None:
+        total += np.asarray(minus_bc, dtype=np.int64)[COMPL_PERM][:, ::-1]
+
+    depth = total.sum(axis=0)
+    cov.coverage = [int(x) for x in depth]
+
+    tmpl = encode.encode_template(cov.plus_seq.bases)
+    mutations = {}
+    # mutation counts = all channels except the template's own base
+    mut_total = depth - np.where(
+        tmpl < encode.NBASE,
+        total[np.minimum(tmpl, encode.NBASE - 1), np.arange(len(tmpl))], 0)
+    for j in np.flatnonzero(mut_total):
+        parts = []
+        for c in _SORTED_CHANNELS:
+            if c == tmpl[j]:
+                continue
+            n = int(total[c, j])
+            if n:
+                parts.append(encode.BASE_CHARS[c] * n)
+        mutations[int(j)] = ''.join(parts)
+    cov.mutations = mutations

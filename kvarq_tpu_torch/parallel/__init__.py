@@ -5,7 +5,7 @@ kvarq_tpu/parallel/__init__.py): the scan sharded over a 2-D
 
 - ``data`` axis: every step's rows are split into ``n_data`` slices.
 - ``bank`` axis: the template bank is split into ``n_bank`` contiguous
-  template ranges (kvarq_tpu's numpy :py:class:`ShardBank` layout); each
+  template ranges (:py:class:`ShardBank`, kvarq_tpu's numpy layout); each
   shard gets its own :py:class:`~kvarq_tpu_torch.engine.pallas_scan.BankState`
   whose ``tseg`` uses *global* template numbering.
 
@@ -28,13 +28,12 @@ entries of a multi-card mesh (ROADMAP queue 1, speed work).
 import numpy as np
 import torch
 
-from kvarq_tpu.engine import encode
-from kvarq_tpu.engine.pallas_scan import pack_qmeta, pack_tseg
-from kvarq_tpu.log import lo
-from kvarq_tpu.parallel import ShardBank as _NumpyShardBank
 from kvarq_tpu_torch import device as _device
-from kvarq_tpu_torch.engine import pallas_scan
+from kvarq_tpu_torch.engine import encode, pallas_scan
+from kvarq_tpu_torch.engine.match_xla import _Bank
+from kvarq_tpu_torch.engine.pallas_scan import pack_qmeta, pack_tseg
 from kvarq_tpu_torch.engine.tensor_scan import score_rows
+from kvarq_tpu_torch.log import lo
 
 
 class Mesh:
@@ -107,22 +106,57 @@ def parse_mesh(spec, backend='cuda'):
     return make_mesh(n_data, n_bank, backend=backend)
 
 
-class ShardBank(_NumpyShardBank):
-    ''' kvarq_tpu's per-bank-shard sub-banks (padded to a common ``G``,
-        global template ids) plus one
-        :py:class:`~kvarq_tpu_torch.engine.pallas_scan.BankState` per
-        shard and device.  Every shard's state has the common ``G`` and
-        ``Qp`` (a multiple of ``QALIGN``), the channel count of the whole
-        bank (:py:meth:`channels`), and ``tseg`` in global template
+def split_templates(nseqs, n_bank):
+    ''' contiguous template ranges [(lo, hi)...] per bank shard '''
+    per = (nseqs + n_bank - 1) // n_bank
+    return [(min(i * per, nseqs), min((i + 1) * per, nseqs))
+            for i in range(n_bank)]
+
+
+class ShardBank:
+    ''' per-bank-shard template sub-banks, padded to a common width G so
+        they stack into one [n_bank, ...] array, with ``tid`` in *global*
+        template numbering (kvarq_tpu.parallel.ShardBank's numpy layout),
+        plus one :py:class:`~kvarq_tpu_torch.engine.pallas_scan.BankState`
+        per shard and device.  Every shard's state has the common ``G``
+        and ``Qp`` (a multiple of ``QALIGN``), the channel count of the
+        whole bank (:py:meth:`channels`), and ``tseg`` in global template
         numbering (``T`` for gap and padding columns). '''
 
     def __init__(self, seqs, Lpad, n_bank, minoverlap=None):
-        super().__init__(seqs, Lpad, n_bank, minoverlap)
+        self.Lpad = Lpad
+        self.n_bank = n_bank
+        self.ranges = split_templates(len(seqs), n_bank)
+        banks = [_Bank(seqs[lo:hi], Lpad, minoverlap)
+                 for lo, hi in self.ranges]
+        self.G = max(b.G for b in banks) if banks else 0
+        self.sub = banks
+
+        codes, tid, d_of, seql_of = [], [], [], []
+        for (lo, hi), b in zip(self.ranges, banks):
+            gtid = b.tid.copy()
+            gtid[gtid >= 0] += lo
+            q_fill = self.G + Lpad - 1
+            codes.append(np.pad(b.codes, (0, self.G - b.G),
+                                constant_values=encode.CODE_TMPL_JUNK))
+            tid.append(np.pad(gtid, (0, q_fill - b.Q), constant_values=-1))
+            d_of.append(np.pad(b.d_of, (0, q_fill - b.Q)))
+            seql_of.append(np.pad(b.seql_of, (0, q_fill - b.Q),
+                                  constant_values=1))
+        self.codes = np.stack(codes)        # [n_bank, G]
+        self.tid = np.stack(tid)            # [n_bank, Q]
+        self.d_of = np.stack(d_of)
+        self.seql_of = np.stack(seql_of)
+
         self.T = len(seqs)
         self.nch = self.channels()
         self.Qp = max(-(-(self.G + Lpad - 1) // pallas_scan.QALIGN)
                       * pallas_scan.QALIGN, pallas_scan.QALIGN)
         self._states = {}
+
+    def channels(self):
+        ''' one-hot channel count, consistent over all shards '''
+        return pallas_scan.bank_channels(self.codes)
 
     def state(self, j, device):
         ''' bank shard ``j`` on ``device`` (built once); None for a shard
@@ -406,7 +440,7 @@ def dryrun(n_devices, backend='cuda'):
     ''' one sharded scan step with tiny shapes on a mesh of ``n_devices``
         entries (2 bank shards when even), the cards repeated cyclically
         when there are fewer; checks the planted read hits '''
-    from kvarq_tpu.engine.reader import RecordBatch
+    from kvarq_tpu_torch.engine.reader import RecordBatch
     if torch.device(backend).type == 'cpu':
         devices = ['cpu'] * n_devices
     else:

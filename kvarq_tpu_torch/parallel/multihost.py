@@ -32,9 +32,8 @@ import socket
 
 import numpy as np
 
-from kvarq_tpu.engine import encode, reader
-from kvarq_tpu.log import lo
-from kvarq_tpu.parallel.multihost import sample_max_readlen
+from kvarq_tpu_torch.engine import encode, reader
+from kvarq_tpu_torch.log import lo
 from kvarq_tpu_torch.parallel import ShardedScanner, make_mesh
 
 
@@ -149,6 +148,32 @@ def shard_file_indices(fnames, process_id, num_processes):
     return mine
 
 
+def sample_max_readlen(fnames, n_records=4096):
+    ''' max bases-line length over the first ``n_records`` records of each
+        file -- a cheap per-host estimator for auto-sizing ``Lpad``
+        (quality-trimmed reads are never longer than their bases line).
+        Unreadable files contribute 0 (another host owns them).  (A copy of
+        kvarq_tpu's.) '''
+    import gzip
+    mx = 0
+    for fname in fnames:
+        op = gzip.open if fname.endswith('.gz') else open
+        try:
+            with op(fname, 'rb') as f:
+                for _ in range(n_records):
+                    if not f.readline():        # identifier
+                        break
+                    bases = f.readline()
+                    f.readline()                # separator
+                    f.readline()                # quality
+                    if not bases:
+                        break
+                    mx = max(mx, len(bases.rstrip(b'\r\n')))
+        except OSError:
+            pass
+    return mx
+
+
 def _host_share(k, m, ncards):
     ''' the card indices of local process ``k`` of the ``m`` processes of a
         host with ``ncards`` cards: balanced contiguous blocks, or one
@@ -203,7 +228,7 @@ def findseqs_sharded(fnames, seqs, maxerrors, minoverlap, minreadlength,
     :returns: ``(hits, hitseqs)`` -- the contents of
         ``engine.findseqs(fnames, seqs)['hits'/'hitseqs']``
     '''
-    from kvarq_tpu.engine.sieve import KmerSieve
+    from kvarq_tpu_torch.engine.sieve import KmerSieve
     from kvarq_tpu_torch.engine import Hit, _emit, _matcher_on
 
     rank, world = _world()
@@ -293,7 +318,7 @@ def scan_sharded(fnames, seqs, maxerrors, minoverlap, minreadlength,
     longer than every sampled read raises, asking for ``Lpad``
     (``KVARQ_MULTIHOST_LPAD`` sets it without code changes).
     '''
-    from kvarq_tpu.engine.sieve import KmerSieve
+    from kvarq_tpu_torch.engine.sieve import KmerSieve
 
     rank, world = _world()
     fnames = list(fnames)

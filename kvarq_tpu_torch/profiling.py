@@ -17,7 +17,7 @@ from contextlib import contextmanager
 
 import torch
 
-from kvarq_tpu.log import lo
+from kvarq_tpu_torch.log import lo
 
 # file name of the exported trace inside the trace directory
 TRACE_FILE = 'kvarq_scan.pt.trace.json'

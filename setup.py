@@ -69,7 +69,7 @@ setup(
     # first-ever scan on a fresh machine starts in seconds.
     package_data={
         'kvarq_tpu': ['_precompiled/*-cache', 'gui/res/*.png'],
-        'kvarq_tpu_torch': ['csrc/*.cu'],
+        'kvarq_tpu_torch': ['csrc/*.cu', 'csrc/*.cpp', 'csrc/*.h'],
         '': ['../csrc/reader.cpp', '../csrc/kvq_inflate.h',
              '../csrc/kvq_fast_inflate.h',
              '../csrc/_reader.so',

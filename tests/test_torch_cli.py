@@ -22,6 +22,8 @@ from kvarq_tpu.log import set_warning
 from kvarq_tpu.testsuites import discover_testsuites, load_testsuites
 from kvarq_tpu_torch import analyse, cli
 from kvarq_tpu_torch import engine as tengine
+from kvarq_tpu_torch import testsuites as ttestsuites
+from kvarq_tpu_torch.fastq import Fastq as TFastq
 
 HERE = os.path.abspath(os.path.dirname(__file__))
 ROOT = os.path.dirname(HERE)
@@ -50,6 +52,12 @@ def _mtbc():
     return load_testsuites(discover_testsuites([TESTSUITES]), ['MTBC'])
 
 
+def _port_mtbc():
+    ''' the MTBC testsuites loaded through the port '''
+    return ttestsuites.load_testsuites(
+        ttestsuites.discover_testsuites([TESTSUITES]), ['MTBC'])
+
+
 @needs_genome
 @pytest.mark.parametrize('sieve', ['auto', 'off'])
 def test_analyser_matches_numpy_hit_path(sieve, monkeypatch):
@@ -69,7 +77,7 @@ def test_analyser_matches_numpy_hit_path(sieve, monkeypatch):
 
     tengine.config(sieve=sieve, **params)
     got = analyse.Analyser()
-    got.scan(fastq, suites, keep_hits=False)
+    got.scan(TFastq(FASTQ2, quiet=True), _port_mtbc(), keep_hits=False)
     got.update_testsuites()
 
     assert got.hits is None
@@ -116,7 +124,8 @@ def test_cli_golden(capsys, tmp_path):
 
 
 @pytest.mark.parametrize('args', [
-    ['scan', '--backend', 'xla'], ['scan', '--backend', 'pallas'], ['gui']])
+    ['scan', '--backend', 'xla'], ['scan', '--backend', 'pallas'], ['gui'],
+    ['explorer', 'results.json']])
 def test_cli_refuses_unported_options(args, tmp_path, capsys):
     if args[0] == 'scan':
         args = args + ['-l', 'MTBC', '-f', FASTQ2, str(tmp_path / 'out.json')]

@@ -16,10 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from kvarq_tpu.engine import reader
 from kvarq_tpu_torch import engine as tengine
 from kvarq_tpu_torch import parallel
-from kvarq_tpu_torch.engine import match_pallas
+from kvarq_tpu_torch.engine import encode, match_pallas, reader
 from kvarq_tpu_torch.engine import pallas_scan as tps
 from kvarq_tpu_torch.engine import tensor_scan as tts
 
@@ -27,8 +26,9 @@ from _torch_cases import case
 from test_engine import SEQS7
 
 pytestmark = pytest.mark.cuda
-FASTQ = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'fastqs',
-                     'test_engine.fastq')
+HERE = os.path.dirname(os.path.abspath(__file__))
+FASTQ = os.path.join(HERE, 'fastqs', 'test_engine.fastq')
+TESTSUITES = os.path.join(os.path.dirname(HERE), 'testsuites')
 
 
 @pytest.fixture
@@ -52,6 +52,103 @@ def test_cand_screen_kernel_matches_ref(cuda, nch, Lpad, B):
         want = tps.cand_counts_ref(c, r, state, e, mo, nch)
         np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
         assert (want > 0).any()
+
+
+_MTBC = []
+
+
+def _mtbc_seqs():
+    ''' plus and minus strands of the MTBC templates (loaded once) '''
+    if not _MTBC:
+        from kvarq_tpu_torch import analyse, testsuites
+        suites = testsuites.load_testsuites(
+            testsuites.discover_testsuites([TESTSUITES]), ['MTBC'])
+        covs = analyse.Analyser().load_coverages(suites, spacing=25)
+        _MTBC.extend([c.plus_seq.bases for c in covs.values()]
+                     + [c.minus_seq.bases for c in covs.values()])
+    return list(_MTBC)
+
+
+def _planted_reads(rng, seqs, B, Lpad, nch):
+    ''' random ACGT reads (N sprinkled in with nch 5), every other one
+        carrying a piece of a template with a few substitutions '''
+    acgt = np.frombuffer(b'ACGT', np.uint8)
+    raw = rng.choice(acgt, (B, Lpad))
+    rl = rng.randint(0, Lpad + 1, B)
+    for b in range(0, B, 2):
+        s = np.frombuffer(seqs[rng.randint(len(seqs))].encode(), np.uint8)
+        n = min(len(s), Lpad)
+        start = rng.randint(0, len(s) - n + 1)
+        off = rng.randint(0, Lpad - n + 1)
+        raw[b, off:off + n] = s[start:start + n]
+        raw[b, off + rng.randint(0, n, 2)] = rng.choice(acgt, 2)
+        rl[b] = max(rl[b], off + n)
+    if nch == 5:
+        raw[rng.rand(B, Lpad) < 0.03] = ord('N')
+    codes = encode.encode_read_array(raw)
+    codes[np.arange(Lpad)[None, :] >= rl[:, None]] = encode.CODE_READ_JUNK
+    return codes, rl.astype(np.int32)
+
+
+def _bank_seqs(bank, nch):
+    ''' one short template (a one-tile Qp at Lpad <= 64) or the MTBC
+        bank; with nch 5 some templates carry an N '''
+    seqs = ['ACGTTGCAACGGTTACCGTA'] if bank == 'one tile' else _mtbc_seqs()
+    if nch == 5:
+        seqs = [s[:7] + 'N' + s[8:] if k % 3 == 0 else s
+                for k, s in enumerate(seqs)]
+    return seqs
+
+
+def _screen_equal(codes, rl, state, nch, params=((2, 25), (0, 25), (3, 8))):
+    ''' K1 equals cand_counts_ref exactly (counts, not flags) for every
+        ``(e, mo)``; :returns: the candidate reads of the first '''
+    found = None
+    for e, mo in params:
+        before = tps.cand_counts.launches
+        got = tps.cand_counts(codes, rl, state, e, mo, nch)
+        torch.cuda.synchronize()
+        assert tps.cand_counts.launches == before + 1
+        want = tps.cand_counts_ref(codes, rl, state, e, mo, nch)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy(),
+                                      err_msg='e=%d mo=%d' % (e, mo))
+        found = int((want > 0).sum()) if found is None else found
+    return found
+
+
+@pytest.mark.parametrize('bank', ['one tile', 'MTBC'])
+@pytest.mark.parametrize('nch', [4, 5])
+@pytest.mark.parametrize('Lpad', [36, 64, 128, 192])
+@pytest.mark.parametrize('B', [1, 577, 16384])
+def test_tensor_core_screen_equals_ref(cuda, B, Lpad, nch, bank):
+    ''' the tensor-core K1 at every read padding the reader makes (and 36,
+        whose depth is no multiple of 32 bytes), both channel counts, a
+        one-tile and the whole MTBC bank, one read to a main-path batch '''
+    seqs = _bank_seqs(bank, nch)
+    state = tps.device_arrays(tts.build_bank(seqs, Lpad, 25), len(seqs), cuda)
+    assert state.nch == nch
+    if bank == 'one tile' and Lpad <= 64:
+        assert state.Qp == tps.QALIGN
+    rng = np.random.RandomState(B + Lpad + nch)
+    codes, rl = _planted_reads(rng, seqs, B, Lpad, nch)
+    found = _screen_equal(torch.from_numpy(codes).to(cuda),
+                          torch.from_numpy(rl).to(cuda), state, nch)
+    assert found > 0 or B == 1
+
+
+@pytest.mark.parametrize('nch', [4, 5])
+def test_tensor_core_screen_on_bank_shards(cuda, nch):
+    ''' K1 on each shard of the MTBC bank split in two (common G and Qp,
+        the whole bank's channel count) '''
+    seqs = _bank_seqs('MTBC', nch)
+    bank = parallel.ShardBank(seqs, 128, 2, 25)
+    rng = np.random.RandomState(nch)
+    codes, rl = _planted_reads(rng, seqs, 577, 128, nch)
+    c, r = torch.from_numpy(codes).to(cuda), torch.from_numpy(rl).to(cuda)
+    for j in range(2):
+        state = bank.state(j, cuda)
+        assert state.nch == nch and state.Qp == bank.Qp
+        assert _screen_equal(c, r, state, nch) > 0
 
 
 def test_cand_counts_on_a_device_that_is_not_current(cuda):

@@ -22,11 +22,15 @@ from kvarq_tpu.engine import encode
 from kvarq_tpu.engine.match_pallas import PallasMatcher as JaxPallasMatcher
 from kvarq_tpu.engine.match_xla import XlaMatcher as JaxXlaMatcher
 from kvarq_tpu.engine.reader import RecordBatch
-from kvarq_tpu.fastq import Fastq, FastqFileFormatException
+from kvarq_tpu.fastq import Fastq
 from kvarq_tpu.log import set_warning
 from kvarq_tpu.testsuites import discover_testsuites, load_testsuites
 from kvarq_tpu_torch import analyse
 from kvarq_tpu_torch import engine as tengine
+from kvarq_tpu_torch import testsuites as ttestsuites
+from kvarq_tpu_torch.fastq import Fastq as TFastq
+from kvarq_tpu_torch.fastq import \
+    FastqFileFormatException as TFastqFileFormatException
 from kvarq_tpu_torch.engine import match_pallas, match_xla
 from kvarq_tpu_torch.engine import pallas_scan as tps
 
@@ -188,7 +192,9 @@ def test_findseqs_seqs7(matcher, gz):
     for hit in ret['hits']:
         x[hit.seq_nr] += 1
     assert x == [19, 1, 0, 1, 1, 1, 1]
-    assert all(isinstance(h, jengine.Hit) for h in ret['hits'])
+    # the port's own Hit, with kvarq_tpu's fields
+    assert tengine.Hit._fields == jengine.Hit._fields
+    assert all(isinstance(h, tengine.Hit) for h in ret['hits'])
 
 
 @pytest.mark.parametrize('gz', [False, True])
@@ -270,7 +276,8 @@ def test_findseqs_malformed_fastq(matcher, tmp_path):
         with open(fname, 'w') as f:
             f.write(text)
         for seqs in ([], ['ACGT']):
-            with pytest.raises(FastqFileFormatException):
+            # the port's exception, as kvarq_tpu raises its own
+            with pytest.raises(TFastqFileFormatException):
                 tengine.findseqs(fname, seqs)
     assert not tengine._running
 
@@ -374,6 +381,12 @@ def test_findseqs_matches_countseqs(matcher, with_n, tmp_path):
 
 # --- Analyser ----------------------------------------------------------------
 
+def _port_suites(names):
+    ''' testsuites loaded through the port '''
+    return ttestsuites.load_testsuites(
+        ttestsuites.discover_testsuites([TESTSUITES]), names)
+
+
 @pytest.mark.parametrize('fixture,variant', [(FASTQ1, 'Illumina 1.8+'),
                                              (FASTQ2, None)])
 def test_analyser_keep_hits_matches_numpy(fixture, variant):
@@ -391,7 +404,8 @@ def test_analyser_keep_hits_matches_numpy(fixture, variant):
 
     tengine.config(**params)
     got = analyse.Analyser()
-    got.scan(fastq, suites, keep_hits=True)
+    got.scan(TFastq(fixture, variant=variant, quiet=True),
+             _port_suites(['MTBC']), keep_hits=True)
     got.update_testsuites()
 
     assert got.hits == ref.hits and len(got.hits) > 0
@@ -419,7 +433,7 @@ def test_analyser_scan_default_keeps_hits():
     tengine.config(**params)
     ref, got = janalyse.Analyser(), analyse.Analyser()
     ref.scan(fastq, suites)
-    got.scan(fastq, suites)
+    got.scan(TFastq(FASTQ2, quiet=True), _port_suites(['MTBC/phylo']))
     assert ref.hits is not None and got.hits is not None
     assert got.hits == ref.hits and len(got.hits) > 0
     assert got.hitseqs == ref.hitseqs
