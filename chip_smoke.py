@@ -6,12 +6,15 @@ main-path shape, drives ``kvarq scan``'s coverage path (``countseqs``)
 and its hit-list path (``findseqs``, ``scan -H/-x``) over the 2M-read
 bench corpus with and without the k-mer sieve and over a hit-dense
 corpus, gates the results against the numpy oracle and against each
-other, and runs the CLI on the golden MTBC fixtures.
+other, runs the CLI on the golden MTBC fixtures (timing each process on
+the card and on the CPU), the scale-out layer (h), the GUI's scan,
+stop, save and explorers headless through tests/faketk.py (i), and the
+entry points of graft_entry.py and the two tools (j).
 
     python3 chip_smoke.py
 
-Every phase prints one line; any failure exits non-zero before the
-result lines.  The ``[trace]`` lines time one scan per sieve mode under
+Every phase prints lines of its own; any failure exits non-zero before
+the result lines.  The ``[trace]`` lines time one scan per sieve mode under
 torch.profiler (kernel time on the card, its busy share, the top
 kernels).  The last two lines are the kernel table (with the kernel's
 launch count on each path) and ``{"ok": true, "device": {...}}``.  Work
@@ -116,9 +119,14 @@ def ptxas_summary(report):
                       for e in entries if len(e) > 1)
 
 
-def run(cmd, env=None, timeout=300):
+def run(cmd, env=None, timeout=300, seconds=None):
+    ''' run ``cmd`` from the checkout's root; its wall seconds, process
+        start included, go into the list ``seconds`` when given '''
+    t0 = time.time()
     proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
                           timeout=timeout, env=dict(os.environ, **(env or {})))
+    if seconds is not None:
+        seconds.append(time.time() - t0)
     check(proc.returncode == 0, '%s exited %d:\n%s'
           % (' '.join(cmd), proc.returncode, proc.stderr[-4000:]))
     return proc.stdout
@@ -594,6 +602,245 @@ def scale_out(engine, tps, seqs, path, results, hit_off, by_path):
         'bit: basecounts, seqhits, seqbasehits, reader stats' % (t_two, t_one))
 
 
+GUI_MODULES = ['kvarq_tpu_torch.gui.' + m for m in (
+    'util', 'settings', 'tkplot', 'explorer', 'simple', 'main')]
+GUI_TICK = 0.01     # seconds between two pumps of the GUI's timer queue
+
+
+def gui_scan(faketk, engine, tps, fastq, suites, registry, stop=False):
+    '''
+    the port's scan wizard (``SimpleGUI``) over ``fastq`` with ``suites``
+    ticked and the default settings, its timer queue pumped every
+    ``GUI_TICK`` s until the worker is done; with ``stop``, "stop" is
+    clicked at the first poll that shows this scan's progress.  K1's count
+    is set to 0 just before "start".
+
+    :returns: (the window, its analyser, wall s from "start" to the
+        worker's end, K1 launches, the progress "stop" was clicked at)
+    '''
+    from kvarq_tpu_torch.config import default_config
+    from kvarq_tpu_torch.gui.settings import Settings
+    from kvarq_tpu_torch.gui.simple import SimpleGUI
+    faketk.filedialog.askopenfilename = lambda *a, **kw: (fastq,)
+    gui = SimpleGUI(Settings(dict(default_config)), testsuites={},
+                    testsuite_paths=registry)
+    check(gui.fastqs == [fastq], 'the GUI picked %r' % (gui.fastqs,))
+    for button in gui.selector.buttons:
+        if button.cget('text') in suites:
+            button.invoke()
+    errors = len([c for c in faketk.messagebox.calls if c[0] == 'showerror'])
+    tps.cand_counts.launches = 0
+    t0 = time.time()
+    gui.start.invoke()
+    check(gui.running, 'the GUI did not start the scan of %s' % fastq)
+    stopped_at = None
+    while gui.worker is not None and time.time() - t0 < 300:
+        faketk.pump(rounds=1)
+        if stop and gui.running and engine._running \
+                and engine.stats()['progress'] > 0:
+            # "stop", and at once the poll that stops the engine: the
+            # reader runs ahead of the scan by up to three batches
+            stopped_at = engine.stats()['progress']
+            gui.start.invoke()
+            faketk.pump(rounds=1)
+        time.sleep(GUI_TICK / 10 if stop else GUI_TICK)
+    wall = time.time() - t0
+    launches = tps.cand_counts.launches
+    check(gui.worker is None, 'the GUI scan of %s did not end in 300 s'
+          % fastq)
+    shown = [c for c in faketk.messagebox.calls if c[0] == 'showerror']
+    check(len(shown) == errors, 'the GUI scan of %s showed an error: %r'
+          % (fastq, shown[errors:]))
+    check(fastq in gui.analysers, 'the GUI recorded no result of %s' % fastq)
+    return gui, gui.analysers[fastq], wall, launches, stopped_at
+
+
+def gui_save(faketk, gui, path):
+    ''' the GUI's "save" into ``path``: the saved json '''
+    with open(path, 'w') as fd:
+        faketk.filedialog.asksaveasfile = lambda *a, **kw: fd
+        gui.save_cb()
+    with open(path) as f:
+        return json.load(f)
+
+
+def gui_phase(engine, tps, path, seqs, hit_off, by_path, card):
+    '''
+    phase (i): the port's GUI on the card, headless through tests/faketk.py
+    (its ``GUI_MODULES`` set to the port's modules), the engine at its
+    defaults (the device, sieve on) and the scan wizard's default settings,
+    every MTBC suite ticked:
+
+    - the corpus: wall time, reads/s and K1 launches of the scan; its
+      templates, hit list, hit sequences and reader stats against
+      ``hit_off``, phase (g)'s findseqs of the corpus (gated against the
+      numpy oracle and the coverage path); the saved json's coverages,
+      analyses and stats against ``Analyser().scan`` of the corpus in this
+      process (the same code outside the GUI); the saved json opened in
+      ``JsonExplorer`` and ``DirectoryExplorer`` with no error dialog;
+    - the same scan stopped at its first poll that shows progress: it ends
+      mid-file with results for every suite;
+    - the golden fixture N0116_1_hits_1k.fastq: the saved json against
+      phase (e)'s ``--backend cpu`` run, with the golden calls.
+    '''
+    sys.path.insert(0, os.path.join(HERE, 'tests'))
+    import faketk
+    from kvarq_tpu_torch.analyse import Analyser
+    from kvarq_tpu_torch.fastq import Fastq
+    from kvarq_tpu_torch.testsuites import discover_testsuites
+
+    registry = discover_testsuites([os.path.join(HERE, 'testsuites')])
+    suites = sorted(n for n in registry if n.startswith('MTBC/'))
+    gdir = os.path.join(WORK, 'gui')
+    os.makedirs(gdir, exist_ok=True)
+    for f in os.listdir(gdir):
+        os.remove(os.path.join(gdir, f))
+    engine.config(device='cuda', sieve='auto', mesh='', batchsize=16384)
+    faketk.GUI_MODULES = GUI_MODULES
+    with faketk.installed():
+        try:
+            from kvarq_tpu_torch.gui.explorer import (DirectoryExplorer,
+                                                      JsonExplorer)
+            gui, an, wall, n, _ = gui_scan(faketk, engine, tps, path, suites,
+                                           registry)
+            check(n > 0, 'the GUI scan never launched K1')
+            by_path['gui findseqs'] = n
+            nrec = an.stats['records_parsed']
+            check(nrec == N_READS, 'the GUI scan parsed %d of %d records'
+                  % (nrec, N_READS))
+            tmpl = [c.plus_seq.bases for c in an.coverages.values()]
+            tmpl += [c.minus_seq.bases for c in an.coverages.values()]
+            check(tmpl == seqs, 'the GUI scanned other templates than (g)')
+            for key in ('hits', 'hitseqs', 'stats'):
+                check(getattr(an, key) == hit_off[key], 'the GUI scan of the '
+                      'corpus: %s differ from (g)\'s findseqs' % key)
+            jpath = os.path.join(gdir, 'corpus.json')
+            data = gui_save(faketk, gui, jpath)
+            ref = Analyser()
+            ref.scan(Fastq(path), gui.selected_testsuites)
+            ref.update_testsuites()
+            want = json.loads(json.dumps(ref.encode()))
+            for key in ('coverages', 'analyses', 'stats'):
+                check(data[key] == want[key], 'the GUI scan of the corpus: %s '
+                      'differ from Analyser().scan' % key)
+            check(sorted(data['analyses']) == suites, 'the GUI saved analyses '
+                  'of %s' % sorted(data['analyses']))
+            say('i', 'GUI scan of the corpus (every MTBC suite, default '
+                'settings, sieve on): %d reads in %.3fs from "start" to the '
+                'worker\'s end (testsuite load included) = %.1f reads/s, %d '
+                'hits, K1 launches %d; its hit list, hit sequences and stats '
+                'equal (g)\'s findseqs, the saved coverages, analyses and '
+                'stats equal Analyser().scan of the corpus; %s' % (
+                    nrec, wall, nrec / wall, len(an.hits), n, card))
+            explorer = JsonExplorer(jpath, testsuites={},
+                                    testsuite_paths=registry)
+            faketk.pump(rounds=5)
+            check(all(any(item.startswith(s + ': ') for item in
+                          explorer.alist.items) for s in suites),
+                  'JsonExplorer lists %r' % explorer.alist.items)
+            dx = DirectoryExplorer(gdir, testsuites={},
+                                   testsuite_paths=registry)
+            dx.jlist.selection_set(0)
+            dx.open_json()
+            shown = [c for c in faketk.messagebox.calls if c[0] == 'showerror']
+            check(not shown, 'the explorers showed %r' % shown)
+            say('i', 'the saved json opens in JsonExplorer (%d rows) and '
+                'DirectoryExplorer (%s) with no error dialog' % (
+                    len(explorer.alist.items), ', '.join(dx.jlist.items)))
+
+            gui, an, wall, n, at = gui_scan(faketk, engine, tps, path,
+                                            suites, registry, stop=True)
+            by_path['gui findseqs stopped'] = n
+            nrec = an.stats['records_parsed']
+            check(at is not None and nrec < N_READS, 'the stopped GUI scan '
+                  'parsed %d of %d records' % (nrec, N_READS))
+            check(sorted(an.results) == suites, 'the stopped GUI scan has '
+                  'results of %s' % sorted(an.results))
+            gui_save(faketk, gui, os.path.join(gdir, 'stopped.json'))
+            say('i', 'GUI scan stopped at the first poll that showed progress '
+                '(%.3f): %d of %d records parsed in %.3fs, %d hits, results '
+                'for every suite, K1 launches %d' % (
+                    at, nrec, N_READS, wall, len(an.hits), n))
+
+            name = 'N0116_1_hits_1k.fastq'
+            fq = os.path.join(HERE, 'tests', 'fastqs', name)
+            gui, an, wall, n, _ = gui_scan(faketk, engine, tps, fq, suites,
+                                           registry)
+            by_path['gui findseqs fixture'] = n
+            data = gui_save(faketk, gui, os.path.join(gdir, name + '.json'))
+            ref = json.load(open(os.path.join(WORK, name + '.ref.json')))
+            for key in ('coverages', 'analyses', 'stats'):
+                check(data[key] == ref[key], 'the GUI scan of %s: %s differ '
+                      'from the hit path on the CPU' % (name, key))
+            text = json.dumps(data['analyses'])
+            for call in GOLDEN[name][1]:
+                check(call in text, 'the GUI scan of %s: missing %r'
+                      % (name, call))
+            say('i', 'GUI scan of %s: coverages, analyses and stats equal the '
+                'hit path on the CPU of (e), golden calls present; %.3fs, K1 '
+                'launches %d' % (name, wall, n))
+        finally:
+            # the card's host may have no tkinter to re-import them against
+            faketk.GUI_MODULES = []
+
+
+def entry_phase(tps, by_path, card):
+    '''
+    phase (j): ``graft_entry.entry()`` on the card against
+    ``entry(device='cpu')``, ``dryrun_multichip(4)``, and the tools
+    ``device_bench`` and ``bench_scaling`` as processes
+    '''
+    import torch
+    from kvarq_tpu_torch import graft_entry
+
+    fn, (codes, rl) = graft_entry.entry()
+    tps.cand_counts.launches = 0
+    got = [t.cpu() for t in fn(codes, rl)]
+    n = tps.cand_counts.launches
+    check(n > 0, 'entry() never launched K1')
+    by_path['entry'] = n
+    cfn, (ccodes, crl) = graft_entry.entry('cpu')
+    check(torch.equal(codes.cpu(), ccodes) and torch.equal(rl.cpu(), crl),
+          'entry(): the example reads differ between the card and the CPU')
+    want = cfn(ccodes, crl)
+    for what, a, b in zip(('basecount', 'seqhits', 'seqbasehits'), got, want):
+        check(torch.equal(a, b), 'entry(): %s differs from the CPU' % what)
+    ms = cuda_time_ms(lambda: fn(codes, rl))
+    say('j', 'graft_entry.entry(): K1 launches %d; basecount, seqhits and '
+        'seqbasehits equal entry(device="cpu") exactly (B=%d, G=%d, %d hits); '
+        'the step %.3f ms' % (n, len(codes), got[0].shape[1],
+                             int(got[1][:-1].sum()), ms))
+    tps.cand_counts.launches = 0
+    sc = graft_entry.dryrun_multichip(4)
+    by_path['dryrun_multichip(4)'] = tps.cand_counts.launches
+    say('j', 'dryrun_multichip(4) on %s: the planted read hits, K1 launches '
+        'per entry %s' % (sc.mesh, sc.launches.tolist()))
+
+    out = run([sys.executable, '-m', 'kvarq_tpu_torch.tools.device_bench'],
+              timeout=600)
+    bench = json.loads(out.strip().splitlines()[-1])
+    by_path['device_bench'] = bench['cand_launches']
+    check(bench['cand_launches'] > 0, 'device_bench never launched K1')
+    say('j', 'device_bench: %d reads in batches of %d on %s in %.3fs: %.1f '
+        'reads/s, %.2f TOP/s, %d hit weight, up to %d candidates per batch '
+        '(gather_k %d), K1 launches %d; %s' % (
+            bench['reads'], bench['batch'], bench['device'], bench['seconds'],
+            bench['reads_per_s'], bench['tops'], bench['hit_weight'],
+            bench['max_candidates'], bench['gather_k'],
+            bench['cand_launches'], card))
+    out = run([sys.executable, '-m', 'kvarq_tpu_torch.tools.bench_scaling',
+               '--max', '4'], timeout=600)
+    scaling = json.loads(out.strip().splitlines()[-1])
+    check(sorted(scaling['per_device_reads_per_s']) == ['1', '2', '4'],
+          'bench_scaling measured %r' % scaling)
+    say('j', 'bench_scaling --max 4 (mesh entries on %d card(s), repeated): '
+        'reads/s per entry count %s, efficiency %s; %s' % (
+            torch.cuda.device_count(),
+            ', '.join('%s: %.1f' % kv for kv in
+                      scaling['per_device_reads_per_s'].items()),
+            scaling['efficiency'], card))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -848,7 +1095,7 @@ def main():
         '%.3fs (%.1f%% busy), K1 %.3fs; longest: %s' % (
             wall, busy, 100 * busy / wall, k1,
             '; '.join('%s %.1f ms' % kv for kv in top)))
-    hit_off = hit['off']        # phase (h) holds the mesh hit path to it
+    hit_off = hit['off']        # (h) and (i) hold the mesh and GUI to it
     del hit
 
     # (g') hit-dense: half the reads planted, sieve off (compaction keeps
@@ -883,13 +1130,20 @@ def main():
     # (e) CLI golden runs on the card against the port's own run of the
     # hit path on the CPU (which the tests hold equal to kvarq_tpu's numpy
     # hit path): the coverage path, then -H -x, then one --profile trace
+    # cold start: the wall seconds of each process, start included, on the
+    # card and on the CPU (sieve as the default), per path
     for name, (extra, calls) in GOLDEN.items():
         fq = os.path.join('tests', 'fastqs', name)
         refj = os.path.join(WORK, name + '.ref.json')
         refx = os.path.join(WORK, name + '.ref.hits.fastq')
+        t = {k: [] for k in ('cov card', 'cov cpu', 'hits card', 'hits cpu')}
         run([sys.executable, '-m', 'kvarq_tpu_torch.cli', '-q', '-t',
              'testsuites', 'scan', '-f', '-l', 'MTBC', '--backend', 'cpu',
-             '-H', '-x', refx, *extra, fq, refj])
+             '-H', '-x', refx, *extra, fq, refj], seconds=t['hits cpu'])
+        run([sys.executable, '-m', 'kvarq_tpu_torch.cli', '-q', '-t',
+             'testsuites', 'scan', '-f', '-l', 'MTBC', '--backend', 'cpu',
+             *extra, fq, os.path.join(WORK, name + '.cpu.json')],
+            seconds=t['cov cpu'])
         ref = json.load(open(refj))
         with open(refx, 'rb') as f:
             ref_records = f.read()
@@ -897,7 +1151,8 @@ def main():
             outj = os.path.join(WORK, '%s.%s.json' % (name, sieve))
             run([sys.executable, '-m', 'kvarq_tpu_torch.cli', '-q', '-t',
                  'testsuites', 'scan', '-f', '-l', 'MTBC', *extra, fq, outj],
-                env={'KVARQ_SIEVE': sieve})
+                env={'KVARQ_SIEVE': sieve},
+                seconds=t['cov card'] if sieve == 'auto' else None)
             text = run([sys.executable, '-m', 'kvarq_tpu_torch.cli', '-q',
                         '-t', 'testsuites', 'illustrate', '-r', outj])
             for call in calls:
@@ -914,7 +1169,8 @@ def main():
             outx = os.path.join(WORK, '%s.%s.hits.fastq' % (name, sieve))
             run([sys.executable, '-m', 'kvarq_tpu_torch.cli', '-q', '-t',
                  'testsuites', 'scan', '-f', '-l', 'MTBC', '-H', '-x', outx,
-                 *extra, fq, outj], env={'KVARQ_SIEVE': sieve})
+                 *extra, fq, outj], env={'KVARQ_SIEVE': sieve},
+                seconds=t['hits card'] if sieve == 'auto' else None)
             out = json.load(open(outj))
             for key in ('coverages', 'analyses', 'stats', 'hits', 'hitseqs'):
                 check(out[key] == ref[key], '%s -H sieve=%s: %s differ from '
@@ -927,6 +1183,11 @@ def main():
             'the %d bytes of extracted records equal the hit path on the '
             'CPU (sieve off and on)' % (name, len(ref['hits']),
                                         len(ref_records)))
+        say('e', 'cold start, %s (%d records), one process each, start '
+            'included: coverage path card %.3fs, cpu %.3fs; hit path (-H '
+            '-x) card %.3fs, cpu %.3fs; %s' % (
+                name, ref['stats']['records_parsed'], t['cov card'][0],
+                t['cov cpu'][0], t['hits card'][0], t['hits cpu'][0], card))
 
     fq = os.path.join('tests', 'fastqs', 'N0116_1_hits_1k.fastq')
     outj = os.path.join(WORK, 'profile.json')
@@ -950,6 +1211,10 @@ def main():
     # (h) the scale-out layer, bit for bit against the single-device
     # results above
     scale_out(engine, tps, seqs, path, results, hit_off, by_path)
+
+    # (i) the GUI on the card; (j) the entry points and the tools
+    gui_phase(engine, tps, path, seqs, hit_off, by_path, card)
+    entry_phase(tps, by_path, card)
 
     # (f) summary
     say('f', 'peak device memory of this process %.2f GB; total %.1fs' % (

@@ -1,7 +1,8 @@
 '''
-kvarq_tpu_torch -- ``kvarq scan`` and ``kvarq batch`` of kvarq_tpu (the
-coverage path, the hit-list path and the scale-out layer), ported to
-PyTorch with a hand-written CUDA kernel for NVIDIA Hopper (sm_90a).
+kvarq_tpu_torch -- kvarq_tpu (``kvarq scan`` and ``kvarq batch``: the
+coverage path, the hit-list path and the scale-out layer; the Tk GUI; the
+entry points and the measurement tools) ported to PyTorch with a
+hand-written CUDA kernel for NVIDIA Hopper (sm_90a).
 
 The package stands alone: it imports neither ``jax`` nor ``kvarq_tpu``
 (nor the ``kvarq`` alias package), so a machine with a card needs only
@@ -36,6 +37,13 @@ The device code:
   :py:mod:`kvarq_tpu_torch.profiling` -- ``python -m kvarq_tpu_torch.cli
   scan [-H] [-x FILE] [--profile DIR]``
 - :py:mod:`kvarq_tpu_torch.parallel` -- the mesh and multi-process scans
+- :py:mod:`kvarq_tpu_torch.gui` -- the Tk GUI (``cli gui``, ``cli
+  explorer``), whose scan wizard runs ``Analyser.scan`` on the engine's
+  device
+- :py:mod:`kvarq_tpu_torch.graft_entry` -- ``entry()`` and
+  ``dryrun_multichip()``, the port's ``__graft_entry__``
+- :py:mod:`kvarq_tpu_torch.tools` -- ``device_bench`` and
+  ``bench_scaling``
 
 Tests: ``python -m pytest tests/test_torch_*.py`` on the CPU (the plain
 PyTorch versions, held against kvarq_tpu); on a machine with a card

@@ -12,8 +12,9 @@ CPU (``--backend cpu``); ``-H``/``-x`` run the hit-list scan;
 (:py:func:`cmd_batch`) scans a corpus, sharded over the processes of a
 Gloo group (kvarq_tpu_torch.parallel.multihost) and the devices of each.
 ``illustrate``, ``show``, ``update``, ``summarize``, ``info`` and
-``version`` read and write result files as kvarq_tpu's do; ``gui`` and
-``explorer`` are not yet ported and exit with a message.
+``version`` read and write result files as kvarq_tpu's do.  ``gui`` and
+``explorer`` open the port's Tk windows (kvarq_tpu_torch.gui); they import
+tkinter when they run, so every other command runs on a host without it.
 '''
 
 import argparse
@@ -278,7 +279,8 @@ def cmd_scan(args):
 def pair_fastqs(fastqs):
     ''' sort the files and merge ``X_1.fastq``/``X_2.fastq`` neighbours
         into single paired scans; :returns: ``(files, paired_flags)``.
-        (A copy of ``kvarq_tpu.gui.simple.pair_fastqs``.) '''
+        (A copy of ``kvarq_tpu.gui.simple.pair_fastqs``, kept here so that
+        ``batch`` needs no tkinter; the port's GUI imports it from here.) '''
     ordered = sorted(fastqs)
     files, paired = [], []
     i = 0
@@ -488,12 +490,6 @@ def _batch_per_sample(args, testsuites):
         sys.exit(ERROR_FASTQ_FORMAT_ERROR)
 
 
-def _not_ported(name):
-    def handler(args):
-        _refuse(name)
-    return handler
-
-
 # --- other commands ---------------------------------------------------------
 
 def cmd_version(args):
@@ -593,6 +589,24 @@ def cmd_info(args):
     print('testsuites=' + ','.join(descriptions))
     print('sum=%d tests,%dbp' % (total_tests, total_bp))
     print('sys.prefix=' + sys.prefix)
+
+
+def cmd_gui(args):
+    registry = _registry(args)
+    import tkinter
+    from kvarq_tpu_torch.gui.main import MainGUI
+    MainGUI(testsuite_paths=registry)
+    tkinter.mainloop()
+
+
+def cmd_explorer(args):
+    registry = _registry(args)
+    import tkinter
+    from kvarq_tpu_torch.gui.explorer import DirectoryExplorer, JsonExplorer
+    explorer_cls = (DirectoryExplorer if os.path.isdir(args.explorable)
+                    else JsonExplorer)
+    explorer_cls(args.explorable, testsuites={}, testsuite_paths=registry)
+    tkinter.mainloop()
 
 
 # --- command table ----------------------------------------------------------
@@ -804,7 +818,7 @@ _COMMANDS = [
         _arg('file', help='name of .json file to illustrate'),
     ]),
 
-    ('gui', dict(help='start GUI'), _not_ported('gui'), []),
+    ('gui', dict(help='start GUI'), cmd_gui, []),
 
     ('info', dict(help='show infos about kvarq'), cmd_info, [
         *_testsuite_selection_args(),
@@ -812,7 +826,7 @@ _COMMANDS = [
     ]),
 
     ('explorer', dict(help='launches the directory/json explorer'),
-     _not_ported('explorer'), [
+     cmd_explorer, [
         _arg('explorable', help='directory/.json file to explore'),
     ]),
 ]

@@ -69,7 +69,8 @@ setup(
     # first-ever scan on a fresh machine starts in seconds.
     package_data={
         'kvarq_tpu': ['_precompiled/*-cache', 'gui/res/*.png'],
-        'kvarq_tpu_torch': ['csrc/*.cu', 'csrc/*.cpp', 'csrc/*.h'],
+        'kvarq_tpu_torch': ['csrc/*.cu', 'csrc/*.cpp', 'csrc/*.h',
+                            'gui/res/*.png'],
         '': ['../csrc/reader.cpp', '../csrc/kvq_inflate.h',
              '../csrc/kvq_fast_inflate.h',
              '../csrc/_reader.so',

@@ -124,8 +124,8 @@ def test_cli_golden(capsys, tmp_path):
 
 
 @pytest.mark.parametrize('args', [
-    ['scan', '--backend', 'xla'], ['scan', '--backend', 'pallas'], ['gui'],
-    ['explorer', 'results.json']])
+    ['scan', '--backend', 'xla'], ['scan', '--backend', 'pallas'],
+    ['scan', '--backend', 'numpy'], ['scan', '--backend', 'auto']])
 def test_cli_refuses_unported_options(args, tmp_path, capsys):
     if args[0] == 'scan':
         args = args + ['-l', 'MTBC', '-f', FASTQ2, str(tmp_path / 'out.json')]

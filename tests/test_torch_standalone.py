@@ -2,8 +2,8 @@
 kvarq_tpu_torch stands alone: no module of the port, and not
 ``chip_smoke.py``, imports ``kvarq_tpu``, the ``kvarq`` alias package, the
 root ``bench.py`` or ``jax``; with those names blocked the port imports
-every module and runs ``scan -H -x`` and ``batch`` to kvarq_tpu's
-results; the MTBC testsuites load through both packages in one process,
+every module (the GUI's only where tkinter is installed) and runs
+``scan -H -x`` and ``batch`` to kvarq_tpu's results; the MTBC testsuites load through both packages in one process,
 in either order, each package getting its own classes; and the port's
 copies of kvarq_tpu's host helpers (the corpus generator, the numpy
 oracle matcher, the bank layout) give kvarq_tpu's results.
@@ -82,11 +82,18 @@ BLOCKED = r'''
 import json, pkgutil, importlib, sys
 for name in ('kvarq_tpu', 'kvarq', 'jax', 'bench'):
     sys.modules[name] = None
+try:
+    import tkinter
+except ImportError:
+    tkinter = None
 import kvarq_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(kvarq_tpu_torch.__path__,
                                               'kvarq_tpu_torch.')]
 for m in mods:
-    importlib.import_module(m)
+    # the GUI modules import tkinter, which a host may lack; the AST walk
+    # above holds them to the rule all the same
+    if tkinter is not None or not m.startswith('kvarq_tpu_torch.gui.'):
+        importlib.import_module(m)
 from kvarq_tpu_torch import cli
 ts, fq, out, hits, batch = sys.argv[1:6]
 cli.main(['-q', '-t', ts, 'scan', '-f', '-l', 'MTBC', '--backend', 'cpu',
@@ -120,7 +127,9 @@ def test_runs_with_the_jax_package_blocked(tmp_path):
     assert not info['leaked']
     assert {'kvarq_tpu_torch.cli', 'kvarq_tpu_torch.bench',
             'kvarq_tpu_torch.engine.native', 'kvarq_tpu_torch.genes',
-            'kvarq_tpu_torch.parallel.multihost'} <= set(info['modules'])
+            'kvarq_tpu_torch.parallel.multihost', 'kvarq_tpu_torch.graft_entry',
+            'kvarq_tpu_torch.gui.simple', 'kvarq_tpu_torch.tools.device_bench'
+            } <= set(info['modules'])
 
     ref, rhits, rbatch = (str(tmp_path / n) for n in
                           ('ref.json', 'ref.fastq', 'refbatch.json'))
