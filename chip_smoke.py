@@ -7,9 +7,13 @@ and its hit-list path (``findseqs``, ``scan -H/-x``) over the 2M-read
 bench corpus with and without the k-mer sieve and over a hit-dense
 corpus, gates the results against the numpy oracle and against each
 other, runs the CLI on the golden MTBC fixtures (timing each process on
-the card and on the CPU), the scale-out layer (h), the GUI's scan,
-stop, save and explorers headless through tests/faketk.py (i), and the
-entry points of graft_entry.py and the two tools (j).
+the card, on the CPU and with the numpy and auto backends, and a cold
+process on the card in parts; auto on the corpus), the scale-out layer
+(h), the GUI's scan, stop, save and explorers headless through
+tests/faketk.py (i), the entry points of graft_entry.py and the two
+device tools (j), the hitdiff sweep against the C reference on the card
+and with the numpy backend (k), and the corpus with a second mate as a
+gzipped, BGZF and plain paired FastQ through the CLI (l).
 
     python3 chip_smoke.py
 
@@ -21,9 +25,12 @@ launch count on each path) and ``{"ok": true, "device": {...}}``.  Work
 files go to build/kvarq_tpu_torch/smoke/.
 '''
 
+import concurrent.futures
+import faulthandler
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -34,6 +41,7 @@ HERE = os.path.abspath(os.path.dirname(__file__))
 WORK = os.path.join(HERE, 'build', 'kvarq_tpu_torch', 'smoke')
 N_READS = 2000000
 READLEN = 101
+MATE_SEED = 20260818    # the second file of phase (l)'s pair
 # the hit-dense corpus: half the reads planted from template loci
 DENSE_READS = 262144
 DENSE_PLANT = 0.5
@@ -53,8 +61,27 @@ GOLDEN = {
 }
 
 
+# the fixture whose CLI runs in (e) are timed as cold processes
+COLD_FIXTURE = 'N0116_1_hits_1k.fastq'
+# the engine's -d log lines of the two paths of --backend auto
+SMALL_LOG = 'small input: scanning via the numpy hit path'
+AUTO_DEVICE_LOG = 'backend auto: scanning on cuda'
+
+
+# no phase may take longer: past it, every thread's traceback is printed
+# and the run exits with 1 (a hung phase must not outlive the run's limit)
+PHASE_SECONDS = 420
+
+
 class SmokeFailure(Exception):
     pass
+
+
+def stamp(stamps, phase):
+    ''' the start of ``phase``: its time into ``stamps``, the watchdog
+        re-armed '''
+    stamps.append((phase, time.time()))
+    faulthandler.dump_traceback_later(PHASE_SECONDS, exit=True)
 
 
 def check(ok, msg):
@@ -119,9 +146,10 @@ def ptxas_summary(report):
                       for e in entries if len(e) > 1)
 
 
-def run(cmd, env=None, timeout=300, seconds=None):
+def run(cmd, env=None, timeout=300, seconds=None, stderr=False):
     ''' run ``cmd`` from the checkout's root; its wall seconds, process
-        start included, go into the list ``seconds`` when given '''
+        start included, go into the list ``seconds`` when given.
+        :returns: its standard output, with ``stderr`` (stdout, stderr) '''
     t0 = time.time()
     proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
                           timeout=timeout, env=dict(os.environ, **(env or {})))
@@ -129,7 +157,101 @@ def run(cmd, env=None, timeout=300, seconds=None):
         seconds.append(time.time() - t0)
     check(proc.returncode == 0, '%s exited %d:\n%s'
           % (' '.join(cmd), proc.returncode, proc.stderr[-4000:]))
-    return proc.stdout
+    return (proc.stdout, proc.stderr) if stderr else proc.stdout
+
+
+def cli_main(args, sieve='auto'):
+    ''' ``cli.main(args)`` in this process, with the engine's sieve set to
+        ``sieve``; the engine is put back on the card's device path after.
+        :returns: its standard output '''
+    import contextlib
+    import io
+    from kvarq_tpu_torch import cli, engine
+    out = io.StringIO()
+    engine.config(sieve=sieve)
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(list(args))
+    except SystemExit as e:
+        raise SmokeFailure('cli %s exited %s' % (' '.join(args), e.code))
+    finally:
+        engine.config(sieve='auto', backend='device', device='cuda', mesh='')
+    return out.getvalue()
+
+
+def cli_scan(args, process=False, sieve='auto', seconds=None):
+    ''' ``kvarq scan``-like CLI ``args``: in a process of its own (its wall
+        seconds into ``seconds``) or in this one '''
+    if process:
+        return run([sys.executable, '-m', 'kvarq_tpu_torch.cli'] + list(args),
+                   env={'KVARQ_SIEVE': sieve}, seconds=seconds)
+    return cli_main(args, sieve)
+
+
+# the CLI (``cli.main``) in a process that prints the CUDA kernel's
+# launches as its last line
+COUNTED_CLI = r'''
+import json
+import sys
+
+from kvarq_tpu_torch import cli
+from kvarq_tpu_torch.engine import pallas_scan
+
+cli.main(sys.argv[1:])
+print(json.dumps({'cand_launches': pallas_scan.cand_counts.launches}))
+'''
+
+
+def counted_cli(args, env=None, seconds=None, stderr=False):
+    ''' ``python -m kvarq_tpu_torch.cli`` with ``args`` through
+        COUNTED_CLI: (K1 launches, its stderr when ``stderr``) '''
+    out, err = run([sys.executable, '-c', COUNTED_CLI] + list(args), env=env,
+                   seconds=seconds, stderr=True)
+    n = json.loads(out.strip().splitlines()[-1])['cand_launches']
+    return (n, err) if stderr else n
+
+
+# a cold CLI process on the card, timed in parts: ``import torch``, the CUDA
+# context, the K1 library's load (built already), the CLI's imports, its
+# testsuite load, and the rest of its run (scan, analyses, json); printed
+# as a JSON line
+COLD_PARTS = r'''
+import json
+import sys
+import time
+
+parts = {}
+t = time.time()
+import torch
+parts['import torch'] = time.time() - t
+t = time.time()
+torch.cuda.init()
+torch.empty(1, device='cuda')
+torch.cuda.synchronize()
+parts['CUDA context'] = time.time() - t
+t = time.time()
+from kvarq_tpu_torch.engine import native_cuda
+native_cuda.load('cand_screen.cu')
+parts['K1 library load'] = time.time() - t
+t = time.time()
+from kvarq_tpu_torch import cli
+parts['CLI imports'] = time.time() - t
+selected = cli._selected_testsuites
+
+
+def timed(args):
+    t = time.time()
+    suites = selected(args)
+    parts['testsuite load'] = time.time() - t
+    return suites
+
+
+cli._selected_testsuites = timed
+t = time.time()
+cli.main(sys.argv[1:])
+parts['scan, analyses, json'] = time.time() - t - parts['testsuite load']
+print(json.dumps(parts))
+'''
 
 
 def corpus(seqs_windows, n_reads=N_READS, plant=None):
@@ -541,27 +663,28 @@ def scale_out(engine, tps, seqs, path, results, hit_off, by_path):
     parts = split_corpus(path, N_READS // 2)
     say('setup', 'corpus split into %s in %.1fs' % (
         ' + '.join(os.path.basename(p) for p in parts), time.time() - t0))
-    cli = [sys.executable, '-m', 'kvarq_tpu_torch.cli', '-q', '-t',
-           'testsuites']
+    cli = ['-q', '-t', 'testsuites']
     scanj = os.path.join(WORK, 'corpus.scan.json')
     batchj = os.path.join(WORK, 'corpus.batch.json')
     t0 = time.time()
-    run(cli + ['scan', '-f', '-l', 'MTBC', path, scanj])
+    cli_main(cli + ['scan', '-f', '-l', 'MTBC', path, scanj])
     t_scan = time.time() - t0
     t0 = time.time()
-    run(cli + ['batch', '-f', '-l', 'MTBC', *parts, batchj])
+    run([sys.executable, '-m', 'kvarq_tpu_torch.cli'] + cli
+        + ['batch', '-f', '-l', 'MTBC', *parts, batchj])
     t_batch = time.time() - t0
     ref, out = json.load(open(scanj)), json.load(open(batchj))
     for key in ('coverages', 'analyses', 'stats'):
         check(out[key] == ref[key], 'batch of the two parts: %s differ from '
               'scan of the whole corpus' % key)
     say('h', 'batch of the 2 parts (%.1fs, process included) equals scan of '
-        'the corpus (%.1fs): coverages, analyses, stats (%d records)'
+        'the corpus (%.1fs, in this process): coverages, analyses, stats (%d '
+        'records)'
         % (t_batch, t_scan, out['stats']['records_parsed']))
     psdir = os.path.join(WORK, 'per_sample')
     for name, (extra, _) in GOLDEN.items():
-        run(cli + ['batch', '-f', '--per-sample', '-l', 'MTBC', *extra,
-                   os.path.join('tests', 'fastqs', name), psdir])
+        cli_main(cli + ['batch', '-f', '--per-sample', '-l', 'MTBC', *extra,
+                        os.path.join('tests', 'fastqs', name), psdir])
         ref = json.load(open(os.path.join(WORK, '%s.auto.json' % name)))
         out = json.load(open(os.path.join(
             psdir, name[:-len('.fastq')] + '.json')))
@@ -841,6 +964,383 @@ def entry_phase(tps, by_path, card):
             scaling['efficiency'], card))
 
 
+def cli_phase(hit_off, path, by_path, card):
+    '''
+    phase (e): CLI golden runs on the card against the port's own run of
+    the hit path on the CPU (which the tests hold equal to kvarq_tpu's
+    numpy hit path): the coverage path, then -H -x, then ``--backend
+    numpy`` and ``auto``, then one ``--profile`` trace; ``auto`` on the
+    corpus against ``hit_off``, (g)'s findseqs.  Cold start: on
+    COLD_FIXTURE each timed run is a process of its own (wall seconds,
+    start included), on the card, on the CPU, with numpy and auto, the
+    card's coverage path timed in parts; every other run is ``cli.main``
+    in this process.
+    '''
+    q = ['-q', '-t', 'testsuites', 'scan', '-f', '-l', 'MTBC']
+    for name, (extra, calls) in GOLDEN.items():
+        fq = os.path.join('tests', 'fastqs', name)
+        cold = name == COLD_FIXTURE
+        refj = os.path.join(WORK, name + '.ref.json')
+        refx = os.path.join(WORK, name + '.ref.hits.fastq')
+        t = {k: [] for k in ('cov card', 'cov cpu', 'cov numpy', 'cov auto',
+                             'hits card', 'hits cpu')}
+        cli_scan(q + ['--backend', 'cpu', '-H', '-x', refx, *extra, fq, refj],
+                 cold, seconds=t['hits cpu'])
+        if cold:
+            cli_scan(q + ['--backend', 'cpu', *extra, fq,
+                          os.path.join(WORK, name + '.cpu.json')], cold,
+                     seconds=t['cov cpu'])
+        ref = json.load(open(refj))
+        with open(refx, 'rb') as f:
+            ref_records = f.read()
+        for sieve in ('off', 'auto'):
+            outj = os.path.join(WORK, '%s.%s.json' % (name, sieve))
+            if cold and sieve == 'auto':
+                # the card's coverage path in a cold process, in parts
+                out = run([sys.executable, '-c', COLD_PARTS] + q
+                          + [*extra, fq, outj], seconds=t['cov card'])
+                parts = json.loads(out.strip().splitlines()[-1])
+            else:
+                cli_main(q + [*extra, fq, outj], sieve)
+            text = cli_main(['-q', '-t', 'testsuites', 'illustrate', '-r',
+                             outj])
+            for call in calls:
+                check(call in text, '%s sieve=%s: missing %r' % (name, sieve,
+                                                                 call))
+            out = json.load(open(outj))
+            for key in ('coverages', 'analyses', 'stats'):
+                check(out[key] == ref[key], '%s sieve=%s: %s differ from the '
+                      'hit path on the CPU' % (name, sieve, key))
+        say('e', '%s: golden calls present, coverages/analyses/stats equal '
+            'the hit path on the CPU (sieve off and on)' % name)
+        for sieve in ('off', 'auto'):
+            outj = os.path.join(WORK, '%s.%s.hits.json' % (name, sieve))
+            outx = os.path.join(WORK, '%s.%s.hits.fastq' % (name, sieve))
+            cli_scan(q + ['-H', '-x', outx, *extra, fq, outj],
+                     cold and sieve == 'auto', sieve, seconds=t['hits card'])
+            out = json.load(open(outj))
+            for key in ('coverages', 'analyses', 'stats', 'hits', 'hitseqs'):
+                check(out[key] == ref[key], '%s -H sieve=%s: %s differ from '
+                      'the hit path on the CPU' % (name, sieve, key))
+            with open(outx, 'rb') as f:
+                check(f.read() == ref_records, '%s -x sieve=%s: extracted '
+                      'records differ from the hit path on the CPU'
+                      % (name, sieve))
+        say('e', '%s -H -x: json (coverages, analyses, stats, %d hits) and '
+            'the %d bytes of extracted records equal the hit path on the '
+            'CPU (sieve off and on)' % (name, len(ref['hits']),
+                                        len(ref_records)))
+        # the numpy backend, and on COLD_FIXTURE auto in a fresh process
+        # (with -d: its log names the path), against the card's json
+        card_json = json.load(open(os.path.join(WORK, '%s.auto.json' % name)))
+        for backend in ('numpy', 'auto') if cold else ('numpy',):
+            outj = os.path.join(WORK, '%s.backend-%s.json' % (name, backend))
+            args = q + ['--backend', backend, *extra, fq, outj]
+            if backend == 'auto':
+                _, log = run([sys.executable, '-m', 'kvarq_tpu_torch.cli', '-d']
+                             + args[1:], seconds=t['cov auto'], stderr=True)
+                check(SMALL_LOG in log, '%s --backend auto: no "%s" in its '
+                      'log' % (name, SMALL_LOG))
+            else:
+                cli_scan(args, cold, seconds=t['cov numpy'])
+            out = json.load(open(outj))
+            for key in ('coverages', 'analyses', 'stats'):
+                check(out[key] == card_json[key], '%s --backend %s: %s differ '
+                      'from the card\'s' % (name, backend, key))
+        say('e', '%s: --backend numpy%s: the card\'s coverages, analyses '
+            'and stats' % (name, ' and --backend auto (which took the numpy '
+                           'path: its -d log says "%s")' % SMALL_LOG
+                           if cold else ''))
+        if not cold:
+            continue
+        say('e', 'cold start, %s (%d records), one process each, start '
+            'included: coverage path card %.3fs, cpu %.3fs, numpy %.3fs, auto '
+            '%.3fs; hit path (-H -x) card %.3fs, cpu %.3fs; %s' % (
+                name, ref['stats']['records_parsed'], t['cov card'][0],
+                t['cov cpu'][0], t['cov numpy'][0], t['cov auto'][0],
+                t['hits card'][0], t['hits cpu'][0], card))
+        say('e', 'the card\'s coverage-path process in parts, %s: %s; process '
+            'start and the rest %.3fs; %.3fs in all' % (
+                name, ', '.join('%s %.3fs' % kv for kv in parts.items()),
+                t['cov card'][0] - sum(parts.values()), t['cov card'][0]))
+
+    # auto on the corpus (far over the small-scan limit) runs on the card:
+    # the hit path, K1 launched as often as (g)'s findseqs sieve on
+    outj = os.path.join(WORK, 'corpus.backend-auto.hits.json')
+    wall = []
+    n, log = counted_cli(['-d', '-t', 'testsuites', 'scan', '-f', '-l', 'MTBC',
+                          '--backend', 'auto', '-H', path, outj], stderr=True,
+                         seconds=wall)
+    check(AUTO_DEVICE_LOG in log and SMALL_LOG not in log, '--backend auto '
+          'on the corpus: its log does not say that it scanned on the card')
+    check(n == by_path['findseqs sieve=on'], '--backend auto -H on the corpus '
+          'launched K1 %d times, (g) %d' % (n, by_path['findseqs sieve=on']))
+    by_path['cli scan --backend auto -H corpus'] = n
+    out = json.load(open(outj))
+    check(out['hits'] == [list(h) for h in hit_off['hits']]
+          and out['hitseqs'] == hit_off['hitseqs']
+          and out['stats'] == json.loads(json.dumps(hit_off['stats'])),
+          '--backend auto -H on the '
+          'corpus: hits or stats differ from (g)')
+    say('e', '--backend auto -H on the corpus (%d reads, %.0f MB): "%s", K1 '
+        'launches %d as (g) sieve on; its %d hits and stats equal (g); %.3fs, '
+        'process included' % (N_READS, os.path.getsize(path) / 1e6,
+                              AUTO_DEVICE_LOG, n, len(out['hits']), wall[0]))
+    del out
+
+    fq = os.path.join('tests', 'fastqs', 'N0116_1_hits_1k.fastq')
+    outj = os.path.join(WORK, 'profile.json')
+    tdir = os.path.join(WORK, 'profile_trace')
+    # a process of its own: torch.profiler in the CLI's worker thread, in
+    # a process that has traced the card before, is not relied on
+    cli_scan(q + ['-H', '--profile', tdir, fq, outj], True, 'off')
+    from kvarq_tpu_torch.profiling import TRACE_FILE
+    phases = json.load(open(outj))['info'].get('phases', {})
+    check(set(phases) == {'scan', 'analyse', 'total'},
+          '--profile wrote phases %r' % sorted(phases))
+    with open(os.path.join(tdir, TRACE_FILE)) as f:
+        names = [str(ev.get('name')) for ev in json.load(f)['traceEvents']]
+    nk1 = sum('cand_screen_kernel' in n for n in names)
+    check(nk1 > 0, '--profile trace holds no cand_screen_kernel event')
+    say('e', '--profile (-H, sieve off): info.phases %s; trace of %d events, '
+        '%d of them cand_screen_kernel' % (
+            ' '.join('%s=%.3fs' % kv for kv in sorted(phases.items())),
+            len(names), nk1))
+
+
+def hitdiff_phase(engine, tps, by_path, card):
+    """
+    phase (k): the port's ``tools/hitdiff`` full sweep (fixture templates
+    of 3-4 bases, the golden 5k MTBC extract, six random corpora with N
+    reads in three; maxerrors 0-3, minoverlap 3-25) on the card, then with
+    ``--backend numpy``: every ``findseqs`` hit stream must equal the C
+    reference's (``kvarq_tpu_torch/csrc/ref_bench.c``, built with ``cc``:
+    no C compiler fails the phase).  After each case on the card,
+    ``countseqs`` with the sieve off (K1, compaction, the overflow fallback)
+    must equal the numpy backend's.  Records the ``(Lpad, nch, maxerrors,
+    minoverlap)`` K1 is given.
+    """
+    import collections
+    from kvarq_tpu_torch.tools import hitdiff
+
+    binpath = hitdiff.build_ref_bench()
+    check(binpath is not None, 'no C compiler (cc, gcc, clang) to build '
+          'ref_bench.c')
+    wdir = os.path.join(WORK, 'hitdiff')
+    os.makedirs(wdir, exist_ok=True)
+    screen = tps.cand_counts
+    shapes = collections.Counter()
+    cov = dict(launches=0, cases=0)
+
+    def recorded(codes, rl, state, maxerrors, minoverlap, nch):
+        if codes.device.type == 'cuda':
+            shapes[(codes.shape[1], nch, maxerrors, minoverlap)] += 1
+        return screen(codes, rl, state, maxerrors, minoverlap, nch)
+
+    def countseqs_check(case):
+        fastq, seqs = case[:2]
+        sieve = engine._extra_config['sieve']
+        before = tps.cand_counts.launches
+        engine.config(sieve='off', backend='device', device='cuda')
+        got = engine.countseqs(fastq, seqs)
+        cov['launches'] += tps.cand_counts.launches - before
+        engine.config(backend='numpy')
+        want = engine.countseqs(fastq, seqs)
+        engine.config(sieve=sieve, backend='device')
+        check(got['stats'] == want['stats'] and all(
+            np.array_equal(a, b) for a, b in zip(got['basecounts'],
+                                                 want['basecounts'])),
+              'countseqs sieve=off on the card differs from the numpy '
+              'backend (%s e=%d o=%d)' % (os.path.basename(fastq), case[3],
+                                          case[4]))
+        cov['cases'] += 1
+
+    # the wrapper counts its launches on the name it is called by (its
+    # module's ``cand_counts``): the recorder holds the count meanwhile
+    results = {}
+    recorded.launches = screen.launches
+    tps.cand_counts = recorded
+    progress = os.path.join(wdir, 'progress.txt')
+    try:
+        for backend in ('device', 'numpy'):
+            n0 = recorded.launches
+            t0 = time.time()
+            total = ncases = 0
+            for case in hitdiff.cases(wdir):
+                # the case at work, for a run that the watchdog ends
+                with open(progress, 'w') as f:
+                    f.write('%s %s e=%d o=%d\n' % (
+                        backend, os.path.basename(case[0]), case[3], case[4]))
+                try:
+                    total += hitdiff.run_case(binpath, *case, wdir,
+                                              device='cuda', backend=backend)
+                except AssertionError as e:
+                    raise SmokeFailure('hitdiff --device cuda%s: %s' % (
+                        ' --backend numpy' if backend == 'numpy' else '', e))
+                ncases += 1
+                if backend == 'device':
+                    countseqs_check(case)
+            results[backend] = (total, ncases, time.time() - t0,
+                                recorded.launches - n0)
+    finally:
+        screen.launches = recorded.launches
+        tps.cand_counts = screen
+        engine.config(backend='device')
+    total, ncases, dt, n = results['device']
+    n -= cov['launches']
+    check(n > 0, 'hitdiff on the card never launched K1')
+    check(results['numpy'][:2] == (total, ncases) and results['numpy'][3] == 0,
+          'hitdiff --backend numpy compared %r, the card %r'
+          % (results['numpy'][:2], (total, ncases)))
+    seen = set(shapes)
+    check({k[1] for k in seen} == {4, 5}
+          and {k[2] for k in seen} == {0, 1, 2, 3}
+          and {k[3] for k in seen} == {3, 10, 20, 25},
+          'K1 was not given every nch, maxerrors and minoverlap of the sweep: '
+          '%s' % sorted(seen))
+    by_path['hitdiff findseqs'] = n
+    by_path['hitdiff countseqs sieve=off'] = cov['launches']
+    say('k', 'hitdiff --device cuda (full sweep): %d hits in %d cases equal '
+        'ref_bench.c\'s tuple for tuple, %.1fs (the countseqs checks '
+        'included); K1 launches %d on the hit path; countseqs sieve=off on '
+        'the card equals the numpy backend in all %d cases (K1 launches %d)'
+        % (total, ncases, dt, n, cov['cases'], cov['launches']))
+    say('k', 'K1 was given (Lpad, nch, maxerrors, minoverlap) x launches: %s'
+        % ', '.join('(%d, %d, %d, %d) x %d' % (k + (v,))
+                    for k, v in sorted(shapes.items())))
+    say('k', 'hitdiff --backend numpy (full sweep): %d hits in %d cases equal '
+        'ref_bench.c\'s, %.1fs; %s' % (results['numpy'][0],
+                                       results['numpy'][1],
+                                       results['numpy'][2], card))
+
+
+def paired_phase(engine, tps, seqs, windows, path, by_path, card):
+    """
+    phase (l): the corpus and a second 2M-read mate (another seed) as a
+    ``*_1.fastq``/``*_2.fastq`` pair, plain, single-member gz and BGZF
+    (``tools/gz_bench``'s writers), each scanned by the CLI (``cli.main``
+    in this process) on the card with paired detection on, sieve on and
+    off: coverages, analyses and
+    the exact stats must equal the plain pair's, which must equal
+    ``Analyser.scan`` (``countseqs([f1, f2])``) in this process; the
+    mate's first 8192 reads are gated against the numpy oracle.  Then the
+    reader alone over file 1 of each variant (``gz_bench.drain``).
+    """
+    from kvarq_tpu_torch import bench
+    from kvarq_tpu_torch.analyse import Analyser
+    from kvarq_tpu_torch.fastq import Fastq
+    from kvarq_tpu_torch.tools import gz_bench
+
+    pdir = os.path.join(WORK, 'pair')
+    t0 = time.time()
+    mate = os.path.join(pdir, 'plain', 'corpus_2.fastq')
+    first = os.path.join(pdir, 'plain', 'corpus_1.fastq')
+    os.makedirs(os.path.dirname(mate), exist_ok=True)
+    if not os.path.exists(mate):
+        bench.generate_fastq(mate + '.tmp', windows, N_READS, READLEN,
+                             seed=MATE_SEED)
+        os.replace(mate + '.tmp', mate)
+    if not os.path.exists(first):
+        try:
+            os.link(path, first)
+        except OSError:
+            shutil.copyfile(path, first)
+    t_gen = time.time() - t0
+    files = {'plain': first}
+    t0 = time.time()
+    jobs = []
+    for variant, write in (('gz', gz_bench.write_gz),
+                           ('bgzf', gz_bench.write_bgzf)):
+        os.makedirs(os.path.join(pdir, variant), exist_ok=True)
+        for src in (first, mate):
+            dst = os.path.join(pdir, variant,
+                               os.path.basename(src) + '.gz')
+            if not os.path.exists(dst):
+                jobs.append((write, src, dst))
+        files[variant] = os.path.join(pdir, variant, 'corpus_1.fastq.gz')
+
+    def compress(job):
+        write, src, dst = job
+        write(dst + '.tmp', src)
+        os.replace(dst + '.tmp', dst)
+
+    # zlib lets go of the interpreter lock: the four files in parallel
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        list(pool.map(compress, jobs))
+    say('setup', 'mate corpus_2.fastq (seed %d) in %.1fs; gz and BGZF copies '
+        'of both in %.1fs: %s' % (
+            MATE_SEED, t_gen, time.time() - t0, ', '.join(
+                '%s %.0f+%.0f MB' % (v, os.path.getsize(f) / 1e6,
+                                     os.path.getsize(f.replace('_1.', '_2.'))
+                                     / 1e6) for v, f in files.items())))
+
+    # the mate's first 8192 reads against the numpy oracle, as (d) does for
+    # the corpus
+    mprefix = os.path.join(pdir, 'corpus_2_prefix_8192.fastq')
+    with open(mate) as f, open(mprefix, 'w') as g:
+        for _ in range(4 * 8192):
+            g.write(f.readline())
+    engine.config(device='cuda', sieve='auto', backend='device', **SCAN)
+    oracle_gate(engine.countseqs(mprefix, seqs), mprefix, seqs, None)
+
+    out, walls = {}, {}
+    for variant, f1 in files.items():
+        for sieve in ('auto', 'off'):
+            outj = os.path.join(pdir, '%s.sieve-%s.json' % (variant, sieve))
+            tps.cand_counts.launches = 0
+            t0 = time.time()
+            cli_main(['-q', '-t', 'testsuites', 'scan', '-f', '-l', 'MTBC',
+                      f1, outj], sieve)
+            wall, n = time.time() - t0, tps.cand_counts.launches
+            check((n > 0) == (sieve == 'off'), 'paired %s sieve=%s: K1 '
+                  'launches %d' % (variant, sieve, n))
+            if sieve == 'off':
+                by_path['cli scan paired %s sieve=off' % variant] = n
+            out[variant, sieve] = json.load(open(outj))
+            walls[variant, sieve] = (wall, n)
+    ref = out['plain', 'auto']
+    check(ref['stats']['records_parsed'] == 2 * N_READS, 'the plain pair: '
+          '%d records parsed' % ref['stats']['records_parsed'])
+    an = Analyser()
+    an.scan(Fastq(first, paired=True), bench.load_mtbc(), keep_hits=False)
+    an.update_testsuites()
+    want = json.loads(json.dumps(an.encode()))
+    for key in ('coverages', 'analyses', 'stats'):
+        check(ref[key] == want[key], 'the plain pair\'s CLI json: %s differ '
+              'from Analyser.scan (countseqs of the pair) in this process'
+              % key)
+    exact = ('nseqhits', 'nseqbasehits', 'readlengths', 'records_parsed')
+    for (variant, sieve), data in out.items():
+        for key in ('coverages', 'analyses'):
+            check(data[key] == ref[key], 'paired %s sieve=%s: %s differ from '
+                  'the plain pair sieve on' % (variant, sieve, key))
+        for key in exact:
+            check(data['stats'][key] == ref['stats'][key], 'paired %s '
+                  'sieve=%s: stats[%r] differ from the plain pair'
+                  % (variant, sieve, key))
+    say('l', 'the plain pair (2 x %d reads) equals Analyser.scan of the pair '
+        '(countseqs([f1, f2])) in this process; the mate\'s first 8192 reads '
+        'equal the numpy oracle; gz and BGZF, sieve on and off, give its '
+        'coverages, analyses and stats (%s)' % (N_READS, ', '.join(exact)))
+    for (variant, sieve), (wall, n) in walls.items():
+        say('l', 'CLI scan (cli.main in this process: testsuite load, scan, '
+            'analyses, json) of the %s pair, sieve %s: %.3fs = %.1f reads/s, '
+            'K1 launches %d; %s' % (
+                variant, 'on' if sieve == 'auto' else 'off', wall,
+                2 * N_READS / wall, n, card))
+    rates = {}
+    for variant, f1 in files.items():
+        nrec, _, parsed, dt = gz_bench.drain(f1, SCAN['nthreads'])
+        check(nrec == N_READS, 'gz_bench.drain %s: %d records' % (variant,
+                                                                   nrec))
+        rates[variant] = nrec / dt
+        say('l', 'reader alone (gz_bench.drain, %d threads) over file 1, %s: '
+            '%d records, %.2f GB decompressed in %.3fs: %.0f reads/s, %.0f '
+            'MB/s, %.0f%% of plain' % (
+                SCAN['nthreads'], variant, nrec, parsed / 1e9, dt, nrec / dt,
+                parsed / dt / 1e6, 100 * rates[variant] / rates['plain']))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -852,6 +1352,8 @@ def main():
     from kvarq_tpu_torch.engine import tensor_scan as tts
 
     t_start = time.time()
+    stamps = []
+    stamp(stamps, 'a')
     dev = device.select('cuda')
     kind = torch.cuda.get_device_name(0)
     # (a) card and kernel build
@@ -882,6 +1384,7 @@ def main():
                           len(seqs)))
 
     # (b) K1 against its plain version on one real main-path batch
+    stamp(stamps, 'b')
     stats = reader.ReaderStats()
     batch = next(iter(reader.batches([path], ord(SCAN['Amin']),
                                      SCAN['minreadlength'], stats,
@@ -895,9 +1398,9 @@ def main():
     got = tps.cand_counts(codes, rl, state, e, mo, state.nch)
     want = tps.cand_counts_ref(codes, rl, state, e, mo, state.nch)
     torch.cuda.synchronize()
-    err = int((got - want).abs().max())
-    check(err == 0, 'K1 differs from cand_counts_ref at the main-path shape '
-          '(max abs err %d)' % err)
+    max_err = int((got - want).abs().max())
+    check(max_err == 0, 'K1 differs from cand_counts_ref at the main-path '
+          'shape (max abs err %d)' % max_err)
     say('b', 'ptxas -v of cand_screen.cu: %s' % ptxas_summary(
         native_cuda.ptxas_report.get('cand_screen.cu', '')))
     # plain (the kernel's plain version), kernel, kernel, plain
@@ -970,6 +1473,7 @@ def main():
                                                n5, k5, p5))
     del codes, rl, got, want, c5, r5, state5, sbank5
 
+    stamp(stamps, 'd')
     # (d) oracle gate on the first 8192 reads, both sieve modes (this also
     # warms the port's engine before the timed scans)
     found = None
@@ -981,6 +1485,7 @@ def main():
             'reads (%d template hits)' % (sieve, ret['stats']['records_parsed'],
                                           sum(ret['stats']['nseqhits'])))
 
+    stamp(stamps, 'c')
     # (c) the main path over the corpus: unsieved (K1) and sieved (dense)
     rows = tts.score_rows(dev, state.Qp)
     results = {}
@@ -1058,6 +1563,7 @@ def main():
                 sieve, wall, busy, 100 * busy / wall, k1,
                 '; '.join('%s %.1f ms' % kv for kv in top)))
 
+    stamp(stamps, 'g')
     # (g) the hit path (findseqs) over the same corpus: every batch through
     # K1, sieve off and on
     by_path = {'countseqs sieve=off': launches}
@@ -1127,104 +1633,40 @@ def main():
         'tuple (%d hits)' % len(want['hits']))
     del got, want
 
-    # (e) CLI golden runs on the card against the port's own run of the
-    # hit path on the CPU (which the tests hold equal to kvarq_tpu's numpy
-    # hit path): the coverage path, then -H -x, then one --profile trace
-    # cold start: the wall seconds of each process, start included, on the
-    # card and on the CPU (sieve as the default), per path
-    for name, (extra, calls) in GOLDEN.items():
-        fq = os.path.join('tests', 'fastqs', name)
-        refj = os.path.join(WORK, name + '.ref.json')
-        refx = os.path.join(WORK, name + '.ref.hits.fastq')
-        t = {k: [] for k in ('cov card', 'cov cpu', 'hits card', 'hits cpu')}
-        run([sys.executable, '-m', 'kvarq_tpu_torch.cli', '-q', '-t',
-             'testsuites', 'scan', '-f', '-l', 'MTBC', '--backend', 'cpu',
-             '-H', '-x', refx, *extra, fq, refj], seconds=t['hits cpu'])
-        run([sys.executable, '-m', 'kvarq_tpu_torch.cli', '-q', '-t',
-             'testsuites', 'scan', '-f', '-l', 'MTBC', '--backend', 'cpu',
-             *extra, fq, os.path.join(WORK, name + '.cpu.json')],
-            seconds=t['cov cpu'])
-        ref = json.load(open(refj))
-        with open(refx, 'rb') as f:
-            ref_records = f.read()
-        for sieve in ('off', 'auto'):
-            outj = os.path.join(WORK, '%s.%s.json' % (name, sieve))
-            run([sys.executable, '-m', 'kvarq_tpu_torch.cli', '-q', '-t',
-                 'testsuites', 'scan', '-f', '-l', 'MTBC', *extra, fq, outj],
-                env={'KVARQ_SIEVE': sieve},
-                seconds=t['cov card'] if sieve == 'auto' else None)
-            text = run([sys.executable, '-m', 'kvarq_tpu_torch.cli', '-q',
-                        '-t', 'testsuites', 'illustrate', '-r', outj])
-            for call in calls:
-                check(call in text, '%s sieve=%s: missing %r' % (name, sieve,
-                                                                 call))
-            out = json.load(open(outj))
-            for key in ('coverages', 'analyses', 'stats'):
-                check(out[key] == ref[key], '%s sieve=%s: %s differ from the '
-                      'hit path on the CPU' % (name, sieve, key))
-        say('e', '%s: golden calls present, coverages/analyses/stats equal '
-            'the hit path on the CPU (sieve off and on)' % name)
-        for sieve in ('off', 'auto'):
-            outj = os.path.join(WORK, '%s.%s.hits.json' % (name, sieve))
-            outx = os.path.join(WORK, '%s.%s.hits.fastq' % (name, sieve))
-            run([sys.executable, '-m', 'kvarq_tpu_torch.cli', '-q', '-t',
-                 'testsuites', 'scan', '-f', '-l', 'MTBC', '-H', '-x', outx,
-                 *extra, fq, outj], env={'KVARQ_SIEVE': sieve},
-                seconds=t['hits card'] if sieve == 'auto' else None)
-            out = json.load(open(outj))
-            for key in ('coverages', 'analyses', 'stats', 'hits', 'hitseqs'):
-                check(out[key] == ref[key], '%s -H sieve=%s: %s differ from '
-                      'the hit path on the CPU' % (name, sieve, key))
-            with open(outx, 'rb') as f:
-                check(f.read() == ref_records, '%s -x sieve=%s: extracted '
-                      'records differ from the hit path on the CPU'
-                      % (name, sieve))
-        say('e', '%s -H -x: json (coverages, analyses, stats, %d hits) and '
-            'the %d bytes of extracted records equal the hit path on the '
-            'CPU (sieve off and on)' % (name, len(ref['hits']),
-                                        len(ref_records)))
-        say('e', 'cold start, %s (%d records), one process each, start '
-            'included: coverage path card %.3fs, cpu %.3fs; hit path (-H '
-            '-x) card %.3fs, cpu %.3fs; %s' % (
-                name, ref['stats']['records_parsed'], t['cov card'][0],
-                t['cov cpu'][0], t['hits card'][0], t['hits cpu'][0], card))
-
-    fq = os.path.join('tests', 'fastqs', 'N0116_1_hits_1k.fastq')
-    outj = os.path.join(WORK, 'profile.json')
-    tdir = os.path.join(WORK, 'profile_trace')
-    run([sys.executable, '-m', 'kvarq_tpu_torch.cli', '-q', '-t', 'testsuites',
-         'scan', '-f', '-l', 'MTBC', '-H', '--profile', tdir, fq, outj],
-        env={'KVARQ_SIEVE': 'off'})
-    from kvarq_tpu_torch.profiling import TRACE_FILE
-    phases = json.load(open(outj))['info'].get('phases', {})
-    check(set(phases) == {'scan', 'analyse', 'total'},
-          '--profile wrote phases %r' % sorted(phases))
-    with open(os.path.join(tdir, TRACE_FILE)) as f:
-        names = [str(ev.get('name')) for ev in json.load(f)['traceEvents']]
-    nk1 = sum('cand_screen_kernel' in n for n in names)
-    check(nk1 > 0, '--profile trace holds no cand_screen_kernel event')
-    say('e', '--profile (-H, sieve off): info.phases %s; trace of %d events, '
-        '%d of them cand_screen_kernel' % (
-            ' '.join('%s=%.3fs' % kv for kv in sorted(phases.items())),
-            len(names), nk1))
+    stamp(stamps, 'e')
+    cli_phase(hit_off, path, by_path, card)
 
     # (h) the scale-out layer, bit for bit against the single-device
     # results above
+    stamp(stamps, 'h')
     scale_out(engine, tps, seqs, path, results, hit_off, by_path)
 
     # (i) the GUI on the card; (j) the entry points and the tools
+    stamp(stamps, 'i')
     gui_phase(engine, tps, path, seqs, hit_off, by_path, card)
+    stamp(stamps, 'j')
     entry_phase(tps, by_path, card)
 
+    # (k) hitdiff against the C reference; (l) gzipped and paired input
+    stamp(stamps, 'k')
+    hitdiff_phase(engine, tps, by_path, card)
+    stamp(stamps, 'l')
+    paired_phase(engine, tps, seqs, windows, path, by_path, card)
+    stamp(stamps, 'f')
+    faulthandler.cancel_dump_traceback_later()
+
     # (f) summary
-    say('f', 'peak device memory of this process %.2f GB; total %.1fs' % (
-        torch.cuda.max_memory_allocated() / 1e9, time.time() - t_start))
+    say('f', 'peak device memory of this process %.2f GB; total %.1fs; '
+        'seconds per phase (from its start to the next one\'s): %s' % (
+            torch.cuda.max_memory_allocated() / 1e9, time.time() - t_start,
+            ', '.join('%s %.1f' % (a, tb - ta) for (a, ta), (_, tb) in
+                      zip(stamps, stamps[1:]))))
     print(json.dumps({'kernels': [{
         'name': 'cand_screen', 'route': 'cuda',
         'source': 'kvarq_tpu_torch/csrc/cand_screen.cu',
         'replaces': 'kvarq_tpu/engine/pallas_scan.py:151',
         'launches': launches, 'launches_by_path': by_path,
-        'max_abs_err': err, 'ms': k_ms, 'plain_ms': ref_ms,
+        'max_abs_err': max_err, 'ms': k_ms, 'plain_ms': ref_ms,
         'bound_ms': k1b['bound_ms'], 'bound_by': k1b['bound_by'],
         # no single PyTorch call computes the screen; matmul_ms is the fp16
         # one-hot product alone, as context

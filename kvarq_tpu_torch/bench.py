@@ -1,9 +1,11 @@
 '''
 The port's counterpart of the repository's ``bench.py``, holding what
-``chip_smoke.py`` needs of it: the MTBC testsuites and their template
-windows, the synthetic FastQ corpus (:py:func:`generate_fastq`, byte for
-byte the JAX package's, seed 20260817) and the byte-exact numpy oracle
-gates (:py:func:`numpy_findseqs`, :py:func:`oracle_basecounts`,
+``chip_smoke.py`` and the port's tools need of it: the MTBC testsuites
+and their template windows, the synthetic FastQ corpus
+(:py:func:`generate_fastq`, byte for byte the JAX package's, seed
+20260817; its size :py:data:`N_READS` x :py:data:`READLEN` and its place
+:py:func:`bench_path`) and the byte-exact numpy oracle gates
+(:py:func:`numpy_findseqs`, :py:func:`oracle_basecounts`,
 :py:func:`assert_device_matches_oracle`) on the port's own
 :py:mod:`~kvarq_tpu_torch.engine.match_numpy`.
 '''
@@ -15,6 +17,8 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+N_READS = int(os.environ.get('KVARQ_BENCH_READS', '2000000'))
+READLEN = int(os.environ.get('KVARQ_BENCH_READLEN', '101'))
 MUTRATE = 0.005         # per-base sequencing-error rate in planted reads
 PLANT_FRAC = 0.03       # fraction of reads drawn from template loci
 
@@ -81,38 +85,35 @@ def generate_fastq(path, windows, n_reads, readlen, seed=20260817,
             f.write(b''.join(parts))
 
 
+def bench_path(tag):
+    ''' where the corpus of ``tag`` lives: the root ``bench.py``'s name,
+        under ``build/kvarq_tpu_torch/bench/`` of the checkout (the root's
+        is under ``/tmp``) '''
+    plant = '' if PLANT_FRAC == 0.03 else '_p%g' % PLANT_FRAC
+    return os.path.join(ROOT, 'build', 'kvarq_tpu_torch', 'bench',
+                        'kvarq_bench_%s_%dx%d%s.fastq'
+                        % (tag, N_READS, READLEN, plant))
+
+
 def numpy_findseqs(path, seqs):
     ''' the port engine's ``findseqs`` under its current configuration,
-        with the byte-exact numpy matcher on every batch and no sieve:
-        the oracle hit stream '''
+        with the byte-exact numpy matcher (backend ``numpy``) on every
+        batch and no sieve: the oracle hit stream '''
     from kvarq_tpu_torch import engine
-    from kvarq_tpu_torch.engine.match_numpy import NumpyMatcher
-    cfg = engine.get_config()
-    make, sieve = engine._make_matcher, engine._extra_config['sieve']
-    engine._make_matcher = lambda seqs_: NumpyMatcher(
-        seqs_, cfg['maxerrors'], cfg['minoverlap'])
-    engine.config(sieve='off')
+    saved = {k: engine._extra_config[k] for k in ('backend', 'sieve')}
+    engine.config(backend='numpy', sieve='off')
     try:
         return engine.findseqs(path, seqs)
     finally:
-        engine._make_matcher = make
-        engine.config(sieve=sieve)
+        engine.config(**saved)
 
 
 def oracle_basecounts(found, seqs):
     ''' rebuild per-strand [5, S] base counts from a findseqs hit list
         (the numpy oracle's output) -- the exact quantity countseqs
-        accumulates on device (non-AGCTN read bytes are dropped,
-        matching the device path's 5-channel one-hot) '''
-    from kvarq_tpu_torch.engine import encode
-    counts = [np.zeros((encode.NBASE, len(s)), np.int64) for s in seqs]
-    for hit, hitseq in zip(found['hits'], found['hitseqs']):
-        start = max(0, hit.seq_pos)
-        codes = encode.encode_read(hitseq.encode('latin-1'))
-        pos = start + np.arange(len(codes))
-        valid = codes < encode.NBASE
-        np.add.at(counts[hit.seq_nr], (codes[valid], pos[valid]), 1)
-    return counts
+        accumulates on device: the engine's numpy-path fold '''
+    from kvarq_tpu_torch import engine
+    return engine._basecounts_from_hits(found['hits'], found['hitseqs'], seqs)
 
 
 def assert_device_matches_oracle(device_ret, path, seqs, found=None):

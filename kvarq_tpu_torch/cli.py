@@ -4,8 +4,11 @@ The ``kvarq`` command line of the port: ``python -m kvarq_tpu_torch.cli``
 
 The whole surface is declared as a data table (``_COMMANDS``) from which
 the argparse parser is generated.  ``scan`` (:py:func:`cmd_scan`) runs the
-port's engine on a CUDA device (``--backend cuda``, the default) or on the
-CPU (``--backend cpu``); ``-H``/``-x`` run the hit-list scan;
+port's engine on a CUDA device (``--backend cuda``, the default), on the
+CPU (``--backend cpu``), with the host's numpy matcher (``--backend
+numpy``) or, with ``--backend auto``, with numpy on a small input while
+CUDA is cold and on the card otherwise; ``-H``/``-x`` run the hit-list
+scan;
 ``--profile`` records phase times and a torch.profiler trace
 (kvarq_tpu_torch.profiling); ``--mesh`` shards either path over a
 ``('data', 'bank')`` device mesh (kvarq_tpu_torch.parallel).  ``batch``
@@ -43,7 +46,10 @@ ERROR_COMMAND_LINE_SWITCH = -1
 ERROR_FASTQ_FORMAT_ERROR = -2
 ERROR_FILE_EXISTS = -3
 
-BACKENDS = ('cuda', 'cpu')
+DEVICES = ('cuda', 'cpu')
+# scan's --backend: a device, or an engine backend (numpy, auto) whose
+# device path runs on the card
+BACKENDS = DEVICES + ('numpy', 'auto')
 
 
 # --- shared helpers ---------------------------------------------------------
@@ -81,12 +87,6 @@ def _write_result(data, path):
 
 
 # --- scan -------------------------------------------------------------------
-
-def _refuse(what):
-    sys.stderr.write('\n*** %s is not yet ported to kvarq_tpu_torch; use '
-                     'python -m kvarq_tpu.cli ***\n\n' % what)
-    sys.exit(ERROR_COMMAND_LINE_SWITCH)
-
 
 class ScanSession:
 
@@ -186,17 +186,32 @@ def _fail(msg):
     sys.exit(ERROR_COMMAND_LINE_SWITCH)
 
 
-def _backend(args):
-    ''' the checked ``--backend`` (default cuda) '''
-    backend = args.backend or 'cuda'
-    if backend not in BACKENDS:
-        _refuse('--backend %s (the port runs %s)'
-                % (backend, ' or '.join(BACKENDS)))
-    try:
-        device.select(backend)
-    except RuntimeError as e:
-        _fail(e)
-    return backend
+def _backend(args, choices=BACKENDS):
+    ''' the checked ``--backend`` and its device, which must exist unless
+        the backend is numpy.  Without the flag: ``$KVARQ_BACKEND`` where
+        ``choices`` has it, else the card.
+        :returns: ``(backend, device)`` '''
+    backend = args.backend or os.environ.get('KVARQ_BACKEND', 'cuda')
+    if backend in engine._COUNTERPARTS:
+        _fail("--backend %s is kvarq_tpu's; the port's counterpart is "
+              "--backend %s" % (backend, 'cpu' if backend == 'xla'
+                                else 'cuda'))
+    if backend not in choices:
+        backend = 'cuda'
+    dev = 'cpu' if backend == 'cpu' else 'cuda'
+    if backend != 'numpy':
+        try:
+            device.select(dev)
+        except RuntimeError as e:
+            _fail(e)
+    return backend, dev
+
+
+def _configure_backend(backend, dev):
+    ''' the engine on ``dev``, through the numpy or auto path when
+        ``backend`` names one '''
+    engine.config(device=dev, backend=backend if backend in ('numpy', 'auto')
+                  else 'device')
 
 
 def _testsuites(args):
@@ -209,12 +224,12 @@ def _testsuites(args):
 
 
 def cmd_scan(args):
-    backend = _backend(args)
+    backend, dev = _backend(args)
     mesh = None
     if args.mesh:
         # checked here, so that a bad spec exits before the scan starts
         try:
-            mesh = parallel.parse_mesh(args.mesh, backend)
+            mesh = parallel.parse_mesh(args.mesh, dev)
         except (RuntimeError, ValueError) as e:
             _fail(e)
     testsuites = _testsuites(args)
@@ -231,8 +246,8 @@ def cmd_scan(args):
                   Amin=fastq.Q2A(args.quality),
                   Azero=fastq.Azero,
                   minreadlength=args.readlength,
-                  minoverlap=args.overlap,
-                  device=backend)
+                  minoverlap=args.overlap)
+    _configure_backend(backend, dev)
     if mesh is not None:
         # -H/-x with a mesh run the sharded screen (ShardedMatcher): hits
         # identical to the unsharded scan
@@ -249,7 +264,7 @@ def cmd_scan(args):
                   for size in fastq.filesizes()), backend))
     started = time.time()
 
-    prof = ScanProfiler(args.profile, backend)
+    prof = ScanProfiler(args.profile, dev)
     if args.profile:
         prof.start()
 
@@ -306,7 +321,7 @@ def cmd_batch(args):
         its own file shard on its share of its host's cards
         (:py:func:`kvarq_tpu_torch.parallel.multihost.local_mesh`) and
         process 0 writes the results. '''
-    backend = _backend(args)
+    _, dev = _backend(args, DEVICES)
     testsuites = _testsuites(args)
     try:
         # quality variant / Azero are inferred from the first file
@@ -320,8 +335,9 @@ def cmd_batch(args):
                   Amin=fastq0.Q2A(args.quality),
                   Azero=fastq0.Azero,
                   minreadlength=args.readlength,
-                  minoverlap=args.overlap,
-                  device=backend)
+                  minoverlap=args.overlap)
+    # batch scans on its device, whatever the engine's backend key says
+    _configure_backend(dev, dev)
     if args.per_sample:
         _batch_per_sample(args, testsuites)
         return
@@ -351,7 +367,7 @@ def cmd_batch(args):
         list(args.fastq), seqs, maxerrors=args.errors,
         minoverlap=args.overlap, minreadlength=args.readlength,
         Amin=fastq0.Q2A(args.quality), nthreads=args.threads, stats=stats,
-        device=backend)
+        device=dev)
     analyser.scantime = time.time() - started
 
     n = len(analyser.coverages)
@@ -699,8 +715,12 @@ _COMMANDS = [
         # kvarq_tpu's backend names parse too, so that cmd_scan can say
         # why they are refused
         _arg('--backend',
-             choices=list(BACKENDS) + ['auto', 'numpy', 'xla', 'pallas'],
-             help='compute device of the port: cuda (default) or cpu'),
+             choices=list(BACKENDS) + list(engine._COUNTERPARTS),
+             help='cuda (default): the card; cpu; numpy: the byte-exact '
+                  'matcher on the host; auto: numpy for an input under 4 '
+                  'MB ($KVARQ_SMALL_SCAN) while CUDA is cold, the card '
+                  'otherwise (default: $KVARQ_BACKEND where it names one '
+                  'of these, else cuda)'),
         _arg('--mesh',
              help='scan sharded over a device mesh: "auto" (every card on '
                   'the data axis) or "NDxNB" for an explicit (data, bank) '
@@ -771,7 +791,7 @@ _COMMANDS = [
              help='overwrite any existing .json file'),
         _arg('fastq', nargs='+', help='the .fastq file corpus to scan'),
         _arg('json', help='name of the merged result .json file'),
-        _arg('--backend', choices=BACKENDS,
+        _arg('--backend', choices=DEVICES,
              help='compute device of the port: cuda (default) or cpu'),
     ]),
 

@@ -16,17 +16,29 @@ the card: candidate screen, then exact extraction) and
 :py:mod:`kvarq_tpu_torch.engine.match_xla` (on the CPU: exact extraction
 alone); with a ``mesh`` configured, their sharded counterparts in
 :py:mod:`kvarq_tpu_torch.parallel`.
+
+The ``backend`` key picks the path.  ``device`` (the default) runs on the
+configured ``device``.  ``numpy`` runs the byte-exact
+:py:class:`~kvarq_tpu_torch.engine.match_numpy.NumpyMatcher` on the host
+(``countseqs`` folds its hit list into base counts) and ignores a mesh.
+``auto`` takes the numpy path for a small input while CUDA is still cold
+(:py:func:`_small_scan_eligible`) and the device path otherwise.  Unlike
+kvarq_tpu, where ``auto`` is the default, the port's default never leaves
+the configured device: ``auto`` is asked for, by ``KVARQ_BACKEND=auto``
+or ``engine.config(backend='auto')``.
 '''
 
 import collections
 import contextlib
 import functools
 import os
+import stat
+import sys
 import threading
 
 import numpy as np
 
-from kvarq_tpu_torch.engine import reader
+from kvarq_tpu_torch.engine import encode, reader
 from kvarq_tpu_torch.log import lo
 
 Hit = collections.namedtuple(
@@ -54,11 +66,23 @@ _config = {
 }
 # port extensions (not part of get_config(), for json parity)
 _extra_config = {
+    # $KVARQ_BACKEND where it names numpy or auto; its device names (the
+    # CLI's cuda, cpu) leave the choice to ``device``
+    'backend': {'numpy': 'numpy', 'auto': 'auto'}.get(
+        os.environ.get('KVARQ_BACKEND'), 'device'),
     'device': 'cuda',
     'batchsize': int(os.environ.get('KVARQ_BATCHSIZE', '16384')),
     'sieve': os.environ.get('KVARQ_SIEVE', 'auto'),
     'mesh': os.environ.get('KVARQ_MESH', ''),
 }
+
+# the values of the ``backend`` key, and kvarq_tpu's other backend names
+# with the port's counterparts
+BACKENDS = ('device', 'numpy', 'auto')
+_COUNTERPARTS = {'xla': "device 'cpu' (the device path with no screen "
+                        "kernel)",
+                 'pallas': "device 'cuda' (the device path with the CUDA "
+                           "candidate screen)"}
 
 _lock = threading.Lock()
 _running = False
@@ -72,10 +96,11 @@ _seqbasehits = np.zeros(0, dtype=np.int64)
 def config(**kwargs):
     ''' update engine configuration; accepts the reference keys
         (maxerrors, minoverlap, minreadlength, nthreads, Amin, Azero) plus
-        ``device`` (a torch device string), ``batchsize``, ``sieve`` and
-        ``mesh`` (a spec for :py:func:`kvarq_tpu_torch.parallel.parse_mesh`
-        on ``device``, or a :py:class:`~kvarq_tpu_torch.parallel.Mesh`;
-        empty: one device) '''
+        ``backend`` (``device``, ``numpy`` or ``auto``; see the module's
+        docstring), ``device`` (a torch device string), ``batchsize``,
+        ``sieve`` and ``mesh`` (a spec for
+        :py:func:`kvarq_tpu_torch.parallel.parse_mesh` on ``device``, or a
+        :py:class:`~kvarq_tpu_torch.parallel.Mesh`; empty: one device) '''
     for key, value in kwargs.items():
         if key in ('Amin', 'Azero'):
             if not isinstance(value, str) or len(value) != 1:
@@ -83,6 +108,11 @@ def config(**kwargs):
             _config[key] = value
         elif key in ('maxerrors', 'minoverlap', 'minreadlength', 'nthreads'):
             _config[key] = int(value)
+        elif key == 'backend' and value not in BACKENDS:
+            raise TypeError('backend must be one of %s%s' % (
+                ', '.join(BACKENDS), "; kvarq_tpu's %s is the port's "
+                "backend 'device' with %s" % (value, _COUNTERPARTS[value])
+                if value in _COUNTERPARTS else ''))
         elif key in _extra_config:
             _extra_config[key] = value
         else:
@@ -164,13 +194,15 @@ def _scan(name, nseqs):
     with _lock:
         if _running:
             raise RuntimeError('%s() already running!' % name)
-        _running = True
-    _stop = False
-    _sigints = 0
-    try:
+        # the new scan's state first: a poll of stats() that sees
+        # ``_running`` never reads the previous scan's progress
+        _stop = False
+        _sigints = 0
         _seqhits = np.zeros(nseqs, dtype=np.int64)
         _seqbasehits = np.zeros(nseqs, dtype=np.int64)
         _stats = reader.ReaderStats()
+        _running = True
+    try:
         yield
     finally:
         _running = False
@@ -190,15 +222,24 @@ def _batches(fnames, sieve):
         raise FastqFileFormatException(str(e))
 
 
+def _mesh_requested():
+    ''' True when the ``mesh`` key names a mesh (a spec or a Mesh) '''
+    spec = _extra_config['mesh']
+    if spec and not isinstance(spec, str):
+        return True
+    return str(spec or '').strip().lower() not in ('', 'off', '0', 'no',
+                                                   'none')
+
+
 def _mesh():
     ''' the configured mesh, None for the single-device scan '''
     from kvarq_tpu_torch import parallel
     spec = _extra_config['mesh']
     if isinstance(spec, parallel.Mesh):
         return spec
-    spec = str(spec or '').strip().lower()
-    if spec in ('', 'off', '0', 'no', 'none'):
+    if not _mesh_requested():
         return None
+    spec = str(spec).strip().lower()
     mesh = parallel.parse_mesh(spec, _extra_config['device'])
     lo.info('scanning over %s' % mesh)
     return mesh
@@ -224,7 +265,8 @@ def countseqs(fname, seqs):
     (no hit list).  Statistics are those of :py:func:`findseqs`;
     :py:func:`kvarq_tpu_torch.engine.tensor_scan.fold_into_coverage` maps
     the base counts onto :py:class:`~kvarq_tpu_torch.analyse.Coverage`
-    objects.
+    objects.  On the numpy path (the ``backend`` key) the base counts are
+    those of the numpy hit list (:py:func:`_basecounts_from_hits`).
 
     :returns: dict with ``basecounts`` (list of [5, S] int64 arrays in
         scanned-strand coordinates, parallel to ``seqs``) and ``stats``
@@ -232,6 +274,12 @@ def countseqs(fname, seqs):
     fnames = [fname] if isinstance(fname, str) else list(fname)
     seqs = list(seqs)
     with _scan('countseqs', len(seqs)):
+        if seqs and _numpy_path(fnames):
+            hits, hitseqs = _hits(fnames, seqs, True)
+            return {
+                'basecounts': _basecounts_from_hits(hits, hitseqs, seqs),
+                'stats': stats(),
+            }
         scanner = _make_scanner(seqs) if seqs else None
         sieve = _make_sieve(seqs) if seqs else None
         if sieve is not None:
@@ -257,6 +305,21 @@ def countseqs(fname, seqs):
             'basecounts': basecounts,
             'stats': stats(),
         }
+
+
+def _basecounts_from_hits(hits, hitseqs, seqs):
+    ''' per-template [5, S] base counts in scanned-strand coordinates from
+        a hit list -- the quantity the device path accumulates (non-AGCTN
+        read bytes are dropped, as the device path's 5-channel one-hot
+        drops them) '''
+    counts = [np.zeros((encode.NBASE, len(s)), np.int64) for s in seqs]
+    for hit, hitseq in zip(hits, hitseqs):
+        start = max(0, hit.seq_pos)
+        codes = encode.encode_read(hitseq.encode('latin-1'))
+        pos = start + np.arange(len(codes))
+        valid = codes < encode.NBASE
+        np.add.at(counts[hit.seq_nr], (codes[valid], pos[valid]), 1)
+    return counts
 
 
 def _matcher_on(dev, seqs, maxerrors, minoverlap):
@@ -296,22 +359,96 @@ def findseqs(fname, seqs):
     fnames = [fname] if isinstance(fname, str) else list(fname)
     seqs = list(seqs)
     with _scan('findseqs', len(seqs)):
-        matcher = _make_matcher(seqs) if seqs else None
-        sieve = _make_sieve(seqs) if seqs else None
-        seqlens = [len(s) for s in seqs]
-        hits = []
-        hitseqs = []
-        for batch in _batches(fnames, sieve):
-            if matcher is None:
-                continue
-            _emit(matcher.match_batch(batch), batch, seqlens,
-                  _config['minoverlap'], hits, hitseqs, _seqhits,
-                  _seqbasehits)
+        hits, hitseqs = _hits(fnames, seqs,
+                              bool(seqs) and _numpy_path(fnames))
         return {
             'hits': tuple(hits),
             'stats': stats(),
             'hitseqs': hitseqs,
         }
+
+
+def _hits(fnames, seqs, numpy_path):
+    ''' the hit list and hit sequences of the running scan, on the numpy
+        path or the device's '''
+    if not seqs:
+        matcher = None
+    elif numpy_path:
+        from kvarq_tpu_torch.engine.match_numpy import NumpyMatcher
+        matcher = NumpyMatcher(seqs, _config['maxerrors'],
+                               _config['minoverlap'])
+    else:
+        matcher = _make_matcher(seqs)
+    sieve = _make_sieve(seqs) if seqs else None
+    seqlens = [len(s) for s in seqs]
+    hits = []
+    hitseqs = []
+    for batch in _batches(fnames, sieve):
+        if matcher is None:
+            continue
+        _emit(matcher.match_batch(batch), batch, seqlens,
+              _config['minoverlap'], hits, hitseqs, _seqhits, _seqbasehits)
+    return hits, hitseqs
+
+
+def _numpy_path(fnames):
+    ''' True when the running scan takes the host's numpy path: the
+        ``numpy`` backend, or ``auto`` on a small input while CUDA is cold
+        (:py:func:`_small_scan_eligible`) '''
+    backend = _extra_config['backend']
+    if backend == 'numpy':
+        return True
+    if backend == 'auto':
+        if _small_scan_eligible(fnames):
+            lo.debug('small input: scanning via the numpy hit path')
+            return True
+        lo.debug('backend auto: scanning on %s' % _extra_config['device'])
+    return False
+
+
+def _cuda_ready():
+    ''' True iff this process has initialised CUDA (the counterpart of
+        kvarq_tpu's ``_jax_device_ready``), without initialising it '''
+    torch = sys.modules.get('torch')
+    return torch is not None and torch.cuda.is_initialized()
+
+
+# inputs smaller than this (decompressed-size estimate) take the numpy hit
+# path under backend 'auto' while CUDA is cold: a CUDA context and the
+# kernel's load cost more than a numpy scan of a few thousand reads.  0
+# disables it; it never engages for another backend, with a mesh, or once
+# this process has initialised CUDA.
+SMALL_SCAN_BYTES = int(os.environ.get('KVARQ_SMALL_SCAN', '4000000'))
+
+
+def _small_scan_eligible(fnames):
+    ''' a copy of kvarq_tpu's, keyed off CUDA initialisation.  kvarq_tpu's
+        ``KVARQ_TENSOR_BACKEND`` clause is left out: the port has no such
+        variable. '''
+    if SMALL_SCAN_BYTES <= 0:
+        return False
+    if _extra_config['backend'] != 'auto':
+        return False
+    if _mesh_requested() or _cuda_ready():
+        return False
+    try:
+        # size estimate: gzip detected by magic bytes (so .bgz/.bgzf
+        # inputs count too), at a conservative 8x -- a tens-of-MB
+        # decompressed input must not take the numpy path
+        total = 0
+        for f in fnames:
+            # regular files only: sniffing the magic of a FIFO would
+            # consume bytes that the reader needs
+            if not stat.S_ISREG(os.stat(f).st_mode):
+                return False
+            size = os.path.getsize(f)
+            with open(f, 'rb') as fd:
+                if fd.read(2) == b'\x1f\x8b':
+                    size *= 8
+            total += size
+    except OSError:
+        return False
+    return total < SMALL_SCAN_BYTES
 
 
 def _emit(triplets, batch, seqlens, mo, hits, hitseqs, seqhits,

@@ -6,8 +6,10 @@ progress readout, then show the results in the explorer or save them as
 
 The scan runs on the port's engine, on its configured device: the card
 (``cuda``, the engine's default) unless a caller has set
-``engine.config(device='cpu')``; with no card it fails with an error
-dialog.  ``pair_fastqs`` is the CLI's (``batch`` needs it on hosts
+``engine.config(device='cpu')``, and through the engine's ``backend``
+key (the numpy matcher on the host with ``numpy``); with no card, or no
+``nvcc`` to build the kernel, it fails with an error dialog that names
+both.  ``pair_fastqs`` is the CLI's (``batch`` needs it on hosts
 without tkinter).
 '''
 
@@ -28,6 +30,12 @@ from kvarq_tpu_torch.gui.util import ThemedTk, askopenfilename
 from kvarq_tpu_torch.log import lo, tic, toc
 from kvarq_tpu_torch.testsuites import load_testsuites
 from kvarq_tpu_torch.util import ProgressBar
+
+
+# what a scan on the card needs, named in the "could not scan" dialog
+CARD_NEEDS = ('\n\n(a scan on the card needs a CUDA card and the CUDA '
+              'toolkit\'s nvcc, which builds the port\'s kernel at its '
+              'first use)')
 
 
 def unique_json_path(directory, fastq_name):
@@ -321,8 +329,10 @@ class SimpleGUI(ThemedTk):
                      % (self.fastq.fname, self.worker.exception))
             tkmessagebox.showerror(
                 'could not scan',
-                'the scanning of the file "%s" could not be completed : %s'
-                % (self.fastq.fname, self.worker.exception))
+                'the scanning of the file "%s" could not be completed : %s%s'
+                % (self.fastq.fname, self.worker.exception, CARD_NEEDS
+                   if str(engine._extra_config['device']).startswith('cuda')
+                   and engine._extra_config['backend'] != 'numpy' else ''))
         self.running = False
         self.worker = None
         if self.next_fastq():

@@ -70,7 +70,7 @@ setup(
     package_data={
         'kvarq_tpu': ['_precompiled/*-cache', 'gui/res/*.png'],
         'kvarq_tpu_torch': ['csrc/*.cu', 'csrc/*.cpp', 'csrc/*.h',
-                            'gui/res/*.png'],
+                            'csrc/*.c', 'gui/res/*.png'],
         '': ['../csrc/reader.cpp', '../csrc/kvq_inflate.h',
              '../csrc/kvq_fast_inflate.h',
              '../csrc/_reader.so',

@@ -13,6 +13,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from kvarq_tpu import analyse as janalyse
 from kvarq_tpu import cli as jcli
@@ -39,12 +40,15 @@ needs_genome = pytest.mark.skipif(
 
 @pytest.fixture(autouse=True)
 def reset_torch_engine_config():
-    ''' every test starts from the port engine's built-in defaults '''
+    ''' every test starts from the port engine's built-in defaults, and
+        leaves the device path as the backend '''
     tengine.config(maxerrors=0, minoverlap=20, minreadlength=10,
                    nthreads=1, Amin='!', Azero='!', device='cpu',
+                   backend='device',
                    sieve=os.environ.get('KVARQ_SIEVE', 'auto'),
                    batchsize=int(os.environ.get('KVARQ_BATCHSIZE', '16384')))
     yield
+    tengine.config(backend='device')
 
 
 def _mtbc():
@@ -126,13 +130,30 @@ def test_cli_golden(capsys, tmp_path):
 @pytest.mark.parametrize('args', [
     ['scan', '--backend', 'xla'], ['scan', '--backend', 'pallas'],
     ['scan', '--backend', 'numpy'], ['scan', '--backend', 'auto']])
-def test_cli_refuses_unported_options(args, tmp_path, capsys):
-    if args[0] == 'scan':
-        args = args + ['-l', 'MTBC', '-f', FASTQ2, str(tmp_path / 'out.json')]
+def test_cli_refuses_unported_options(args, tmp_path, capsys, monkeypatch):
+    ''' kvarq_tpu's xla and pallas stay refused, each naming the port's
+        counterpart (cpu, cuda); numpy and auto are ported: numpy scans on
+        the host, and auto, with ``torch.cuda.is_available()`` False, fails
+        as the default scan does, before scanning '''
+    backend = args[2]
+    out = tmp_path / 'out.json'
+    args = args + ['-l', 'MTBC', '-f', FASTQ2, str(out)]
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    if backend == 'numpy':
+        cli.main(['-q', '-t', TESTSUITES] + args)
+        assert json.load(open(out))['stats']['records_parsed'] == 250
+        return
     with pytest.raises(SystemExit) as e:
         cli.main(args)
     assert e.value.code != 0
-    assert 'not yet ported' in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert 'not yet ported' not in err
+    if backend == 'auto':
+        assert 'torch.cuda.is_available() is False' in err
+    else:
+        assert "counterpart is --backend %s" % (
+            'cpu' if backend == 'xla' else 'cuda') in err
+    assert not out.exists()
 
 
 def _scan_both(tmp_path, fastq, args, extra=()):

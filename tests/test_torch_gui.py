@@ -396,9 +396,9 @@ def test_headless_scan_save_explore(tmp_path):
 @pytest.mark.parametrize('when', ['at first progress', 'before the scan',
                                   'two files queued'])
 def test_stopped_scan_returns_partial_results(when, tmp_path):
-    ''' "stop" at the first poll that shows the scan's progress, or before
-        the engine's scan has begun (kvarq_tpu loses that stop: the scan
-        resets the flag when it begins): the scan ends mid-file, and the
+    ''' "stop" at the first poll that shows the scan's parsed records, or
+        before the engine's scan has begun (kvarq_tpu loses that stop: the
+        scan resets the flag when it begins): the scan ends mid-file, and the
         saved analyses are those of its coverages (kvarq_tpu's decode and
         update_testsuites of the saved json).  With a second file queued,
         "start next" stays disabled until the stopped scan's results are
@@ -426,8 +426,10 @@ def test_stopped_scan_returns_partial_results(when, tmp_path):
                                  plant=0.2)
         gui = _gui_scan(fastq, ['MTBC/phylo'], more=queued, threads=1)
         worker = gui.worker
+        # records_parsed: the reader raises ``parsed`` (and with it the
+        # progress) before it has parsed a whole record
         while when != 'before the scan' and not (
-                engine._running and engine.stats()['progress'] > 0):
+                engine._running and engine.stats()['records_parsed'] > 0):
             faketk.pump(rounds=1)
             time.sleep(0.001)
         gui.start.invoke()                    # "stop"
@@ -481,6 +483,7 @@ def test_scan_without_a_card_fails(monkeypatch):
         kind, (title, text), _ = faketk.messagebox.calls[-1]
         assert (kind, title) == ('showerror', 'could not scan')
         assert 'torch.cuda.is_available() is False' in text
+        assert "CUDA toolkit's nvcc" in text
 
 
 # --- the CLI commands -------------------------------------------------------

@@ -128,7 +128,8 @@ def test_runs_with_the_jax_package_blocked(tmp_path):
     assert {'kvarq_tpu_torch.cli', 'kvarq_tpu_torch.bench',
             'kvarq_tpu_torch.engine.native', 'kvarq_tpu_torch.genes',
             'kvarq_tpu_torch.parallel.multihost', 'kvarq_tpu_torch.graft_entry',
-            'kvarq_tpu_torch.gui.simple', 'kvarq_tpu_torch.tools.device_bench'
+            'kvarq_tpu_torch.gui.simple', 'kvarq_tpu_torch.tools.device_bench',
+            'kvarq_tpu_torch.tools.hitdiff', 'kvarq_tpu_torch.tools.gz_bench'
             } <= set(info['modules'])
 
     ref, rhits, rbatch = (str(tmp_path / n) for n in
