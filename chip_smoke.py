@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 '''
-Smoke run of kvarq_tpu_torch on one NVIDIA GPU: builds the CUDA kernel
-from this checkout, checks it against its plain PyTorch version at the
-main-path shape, drives ``kvarq scan``'s coverage path (``countseqs``)
+Smoke run of kvarq_tpu_torch on one NVIDIA GPU: builds the CUDA kernels
+(the candidate screen K1 and the exact scoring S1, one nvcc each, at the
+same time) from this checkout, checks each against its plain PyTorch
+version at the main-path shapes (S1 dense, gathered and overflowing),
+drives ``kvarq scan``'s coverage path (``countseqs``)
 and its hit-list path (``findseqs``, ``scan -H/-x``) over the 2M-read
 bench corpus with and without the k-mer sieve and over a hit-dense
 corpus, gates the results against the numpy oracle and against each
-other, runs the CLI on the golden MTBC fixtures (timing each process on
+other, runs the scanner over the corpus with no host round trip between
+flushes (``torch.cuda.set_sync_debug_mode('error')``), runs the CLI on
+the golden MTBC fixtures (timing each process on
 the card, on the CPU and with the numpy and auto backends, and a cold
 process on the card in parts; auto on the corpus), the scale-out layer
 (h), the GUI's scan, stop, save and explorers headless through
@@ -19,9 +23,10 @@ gzipped, BGZF and plain paired FastQ through the CLI (l).
 
 Every phase prints lines of its own; any failure exits non-zero before
 the result lines.  The ``[trace]`` lines time one scan per sieve mode under
-torch.profiler (kernel time on the card, its busy share, the top
-kernels).  The last two lines are the kernel table (with the kernel's
-launch count on each path) and ``{"ok": true, "device": {...}}``.  Work
+torch.profiler (kernel time on the card, its busy share, K1's and
+S1's time, the top kernels).  The last two lines are the kernel table
+(with each kernel's launch count on each path) and ``{"ok": true,
+"device": {...}}``.  Work
 files go to build/kvarq_tpu_torch/smoke/.
 '''
 
@@ -46,6 +51,8 @@ MATE_SEED = 20260818    # the second file of phase (l)'s pair
 DENSE_READS = 262144
 DENSE_PLANT = 0.5
 MAIN_B = 16384      # reads per batch, as the engine's default batchsize
+GATHER_K = 768      # the scanner's first gather_k (tensor_scan)
+OVERFLOW_ROWS = 128     # a grid for fewer rows than a batch's candidates
 # CLI defaults (kvarq_tpu_torch/config.py): e=2, o=25, r=25, Q13 on Sanger
 SCAN = dict(maxerrors=2, minoverlap=25, minreadlength=25, nthreads=8,
             Amin=chr(33 + 13))
@@ -75,6 +82,19 @@ PHASE_SECONDS = 420
 
 class SmokeFailure(Exception):
     pass
+
+
+# the sources of the port's kernels, built at the same time in (a)
+KERNEL_SOURCES = ['cand_screen.cu', 'score_step.cu']
+# S1's launches per path (``by_path`` holds K1's); the coverage paths score
+# through S1, the hit paths do not
+S1_BY_PATH = {}
+
+
+def zero_launches(tps):
+    ''' every kernel's launch count to 0, just before a path is driven '''
+    tps.cand_counts.launches = 0
+    tps.score_candidates.launches = 0
 
 
 def stamp(stamps, phase):
@@ -123,10 +143,184 @@ def k1_bound(B, Lpad, state):
     ops = 2.0 * B * Lpad * state.nch * state.Qp
     nbytes = (B * Lpad + 4 * B + state.bank.numel() + state.qmeta.numel() * 4
               + 4 * B)
+    return roofline(ops, nbytes)
+
+
+def s1_bound(rows, Lpad, state, gathered):
+    ''' S1's bound at this call: the one-hot product of the ``rows`` it
+        scores (2 * rows * Lpad * nch * Qp int8 operations) at the card's
+        int8 peak, or its bytes at the memory rate -- the scored rows'
+        codes and read lengths (and indices when ``gathered``), the bank
+        bytes, qmeta and tseg read once, the int64 basecount, seqhits and
+        seqbasehits written once -- whichever is longer '''
+    ops = 2.0 * rows * Lpad * state.nch * state.Qp
+    nbytes = (rows * (Lpad + 4 + (4 if gathered else 0))
+              + state.bank.numel() + 4 * state.qmeta.numel()
+              + 4 * state.tseg.numel() + 8 * (5 * state.G + 2 * (state.T + 1)))
+    return roofline(ops, nbytes)
+
+
+def roofline(ops, nbytes):
+    ''' the least time of ``ops`` int8 operations and ``nbytes`` bytes on
+        the card: the longer of the two at its peak rates '''
     t_ops = ops / (INT8_TOPS * 1e12) * 1e3
     t_bytes = nbytes / (HBM_TBPS * 1e12) * 1e3
     return dict(ops=ops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
                 bound_by='operations' if t_ops >= t_bytes else 'bytes')
+
+
+def s1_phase(tps, native_cuda, codes, rl, state, flags, e, mo, mm_ms, card):
+    '''
+    phase (b), S1 on the main-path batch against its plain version
+    (``score_candidates_ref``), exactly, in its three forms: ``dense``
+    (every read: the step of the sieved main path), ``gathered`` (the
+    reads K1 flags, compacted on the card, the grid sized for gather_k
+    768: the unsieved step) and ``overflow`` (the same on a grid for 128
+    reads, fewer than the candidates, so its blocks loop).  Each is timed
+    with CUDA events, median of 5, in turns plain, kernel, kernel, plain,
+    beside its bound.
+
+    :returns: ``{form: {rows, ms, plain_ms, bound_ms, bound_by},
+        'max_abs_err': 0}``
+    '''
+    import torch
+    B, Lpad = codes.shape
+    idx, count = tps.compact(flags > 0)
+    n = int(count)
+    check(OVERFLOW_ROWS < n <= GATHER_K, 'the main-path batch has %d '
+          'candidates, not in (%d, %d]' % (n, OVERFLOW_ROWS, GATHER_K))
+    forms = {'dense': ((), {}, B),
+             'gathered': ((idx, count), dict(grid_rows=GATHER_K), n),
+             'overflow': ((idx, count), dict(grid_rows=OVERFLOW_ROWS), n)}
+    out = {'max_abs_err': 0}
+    for form, (args, kw, rows) in forms.items():
+        got = tps.score_candidates(codes, rl, state, e, mo, *args, **kw)
+        want = tps.score_candidates_ref(codes, rl, state, e, mo, *args)
+        torch.cuda.synchronize()
+        err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+        check(err == 0, 'S1 differs from score_candidates_ref at the '
+              'main-path shape, %s (max abs err %d)' % (form, err))
+        weight = int(want[1][:-1].sum())
+        check(weight > 0, 'S1 %s: no hit weight' % form)
+        del got, want
+
+        def kernel(args=args, kw=kw):
+            tps.score_candidates(codes, rl, state, e, mo, *args, **kw)
+
+        def plain(args=args):
+            tps.score_candidates_ref(codes, rl, state, e, mo, *args)
+        times = [cuda_time_ms(f) for f in (plain, kernel, kernel, plain)]
+        b = s1_bound(rows, Lpad, state, bool(args))
+        out[form] = dict(rows=rows, ms=min(times[1:3]),
+                         plain_ms=min(times[0], times[3]),
+                         bound_ms=b['bound_ms'], bound_by=b['bound_by'])
+        say('b', 'S1 == score_candidates_ref exactly, %s (%d of B=%d reads '
+            'scored, grid for %s, %d hit weight); kernel %.3f / %.3f ms, '
+            'plain %.3f / %.3f ms (median of 5 each, plain, kernel, kernel, '
+            'plain); bound %.3f ms (%.3g int8 operations, %.3g bytes: '
+            '%s-bound), the kernel at %.1f%% of it; the fp16 torch.matmul '
+            'of the dense product alone %.3f ms (context); %s' % (
+                form, rows, B, kw.get('grid_rows', B), weight, times[1],
+                times[2], times[0], times[3], b['bound_ms'], b['ops'],
+                b['bytes'], b['bound_by'],
+                100 * b['bound_ms'] / out[form]['ms'], mm_ms, card))
+    say('b', 'ptxas -v of score_step.cu: %s' % ptxas_summary(
+        native_cuda.ptxas_report.get('score_step.cu', '')))
+    return out
+
+
+def no_sync_gate(tps, tts, reader, dev, seqs, held, want, card):
+    '''
+    phase (c): the scanner over the corpus's unsieved batches (``held``,
+    host arrays) with no host round trip between flushes.  Every step runs
+    under ``torch.cuda.set_sync_debug_mode('error')``, where a host read of
+    a device value raises: dense (S1 on every batch) and gathered (K1,
+    compaction on the card, S1 on the candidates).  The flushes, and the
+    gathered scanner's first step (its one peek at the count), run outside
+    that mode.  Both equal ``want`` (the unsieved ``countseqs`` of (c)) bit
+    for bit.  Then one step that overflows its gather_k (128) runs under
+    the mode and equals the dense step.
+    '''
+    import torch
+    check(len(held) >= 64, 'only %d batches in the corpus' % len(held))
+    e, mo = SCAN['maxerrors'], SCAN['minoverlap']
+    Lpad = held[0][0].shape[1]
+    for mode in ('dense', 'gathered'):
+        sc = tts.TensorScanner(seqs, e, mo, dev)
+        if mode == 'dense':
+            sc.assume_dense()
+        sc._context(Lpad)
+        batches = [reader.RecordBatch(c, r, None, None) for c, r in held]
+        if mode == 'gathered':
+            sc.scan_batch(batches.pop(0))
+        flush = sc._flush
+
+        def unchecked(*a, flush=flush, **kw):
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return flush(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+        sc._flush = unchecked
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches(tps)
+        t0 = time.time()
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            for batch in batches:
+                sc.scan_batch(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        sc.finalize()
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        k1n, s1n = tps.cand_counts.launches, tps.score_candidates.launches
+        # a batch not above gather_k (the last) is scored densely
+        check(s1n == len(batches) and (0 < k1n <= s1n if mode == 'gathered'
+                                       else k1n == 0),
+              '%s steps: %d batches, S1 launches %d, K1 %d'
+              % (mode, len(batches), s1n, k1n))
+        for t, (a, b) in enumerate(zip(sc.coverages(), want['basecounts'])):
+            check(np.array_equal(a, b), '%s steps with no sync: basecounts'
+                  '[%d] differ from countseqs sieve=off' % (mode, t))
+        check(sc.seqhits.tolist() == list(want['stats']['nseqhits'])
+              and sc.seqbasehits.tolist()
+              == list(want['stats']['nseqbasehits']),
+              '%s steps with no sync: seqhits differ from countseqs '
+              'sieve=off' % mode)
+        say('c', 'no host round trip: %d %s steps of %d reads under '
+            'set_sync_debug_mode("error") (S1 launches %d, K1 %d; flushes%s '
+            'outside it) in %.3fs, gather_k ends at %d, peak device memory '
+            '%.2f GB; basecounts, seqhits and seqbasehits equal countseqs '
+            'sieve=off bit for bit; %s' % (
+                len(batches), mode, MAIN_B, s1n, k1n,
+                ' and the first step' if mode == 'gathered' else '', dt,
+                sc.gather_k, torch.cuda.max_memory_allocated() / 1e9, card))
+    state = sc._ctx[Lpad]['state']
+    c = torch.from_numpy(held[0][0]).to(dev)
+    r = torch.from_numpy(held[0][1].astype(np.int32)).to(dev)
+    dense = tps.scan_step_banked(c, r, state, e, mo, 0)
+    torch.cuda.synchronize()
+    zero_launches(tps)
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        over = tps.scan_step_banked(c, r, state, e, mo, OVERFLOW_ROWS)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    n = int(over[3])
+    check(n > OVERFLOW_ROWS and tps.score_candidates.launches == 1
+          and tps.cand_counts.launches == 1, 'the overflow step: %d '
+          'candidates, S1 %d and K1 %d launches' % (
+              n, tps.score_candidates.launches, tps.cand_counts.launches))
+    for what, a, b in zip(('basecount', 'seqhits', 'seqbasehits'), over,
+                          dense):
+        check(torch.equal(a, b), 'the overflow step: %s differs from the '
+              'dense step' % what)
+    say('c', 'one step with gather_k %d and %d candidates under '
+        'set_sync_debug_mode("error"): S1 covers every candidate (its blocks '
+        'loop), equal to the dense step bit for bit' % (OVERFLOW_ROWS, n))
 
 
 def ptxas_summary(report):
@@ -198,7 +392,8 @@ from kvarq_tpu_torch import cli
 from kvarq_tpu_torch.engine import pallas_scan
 
 cli.main(sys.argv[1:])
-print(json.dumps({'cand_launches': pallas_scan.cand_counts.launches}))
+print(json.dumps({'cand_launches': pallas_scan.cand_counts.launches,
+                  'score_launches': pallas_scan.score_candidates.launches}))
 '''
 
 
@@ -212,7 +407,7 @@ def counted_cli(args, env=None, seconds=None, stderr=False):
 
 
 # a cold CLI process on the card, timed in parts: ``import torch``, the CUDA
-# context, the K1 library's load (built already), the CLI's imports, its
+# context, the kernel libraries' load (built already), the CLI's imports, its
 # testsuite load, and the rest of its run (scan, analyses, json); printed
 # as a JSON line
 COLD_PARTS = r'''
@@ -231,8 +426,8 @@ torch.cuda.synchronize()
 parts['CUDA context'] = time.time() - t
 t = time.time()
 from kvarq_tpu_torch.engine import native_cuda
-native_cuda.load('cand_screen.cu')
-parts['K1 library load'] = time.time() - t
+native_cuda.load_all(['cand_screen.cu', 'score_step.cu'])
+parts['kernel libraries load'] = time.time() - t
 t = time.time()
 from kvarq_tpu_torch import cli
 parts['CLI imports'] = time.time() - t
@@ -276,8 +471,8 @@ def corpus(seqs_windows, n_reads=N_READS, plant=None):
 
 def traced_scan(scan, path, seqs):
     ''' one scan (``countseqs`` or ``findseqs``) under torch.profiler:
-        (wall s, kernel s on the card, K1 s, [(kernel, ms)] of the five
-        longest) '''
+        (wall s, kernel s on the card, K1 s, S1 s, [(kernel, ms)] of the
+        five longest) '''
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -291,10 +486,10 @@ def traced_scan(scan, path, seqs):
                   if e.device_type == DeviceType.CUDA),
                  key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in dev) / 1e6
-    k1 = sum(e.self_device_time_total for e in dev
-             if 'cand_screen_kernel' in e.key) / 1e6
-    return wall, busy, k1, [(e.key[:48], e.self_device_time_total / 1e3)
-                            for e in dev[:5]]
+    k1, s1 = (sum(e.self_device_time_total for e in dev if name in e.key)
+              / 1e6 for name in ('cand_screen_kernel', 'score_step_kernel'))
+    return wall, busy, k1, s1, [(e.key[:48], e.self_device_time_total / 1e3)
+                                for e in dev[:5]]
 
 
 def oracle_gate(ret, prefix, seqs, found):
@@ -448,7 +643,8 @@ np.savez(out, bc=np.concatenate([c.ravel() for c in covs]), sh=sh, sbh=sbh,
          rls=stats.rls, counts=np.asarray([
              stats.records_parsed, stats.parsed, stats.total,
              stats.rls_longest]),
-         world=world, launches=pallas_scan.cand_counts.launches)
+         world=world, launches=pallas_scan.cand_counts.launches,
+         score_launches=pallas_scan.score_candidates.launches)
 '''
 
 
@@ -576,12 +772,15 @@ def scale_out(engine, tps, seqs, path, results, hit_off, by_path):
     for sieve in ('off', 'auto'):
         on = 'on' if sieve == 'auto' else 'off'
         engine.config(device='cuda', sieve=sieve, mesh=mesh, **SCAN)
-        tps.cand_counts.launches = 0
+        zero_launches(tps)
         ret, dt, scanner = countseqs_with_scanner(engine, path, seqs)
         n = tps.cand_counts.launches
         check(int(scanner.launches.sum()) == n, 'countseqs on %s: the '
               'entries count %d K1 launches, the wrapper %d'
               % (mesh, scanner.launches.sum(), n))
+        s1 = tps.score_candidates.launches
+        check(s1 > 0, 'countseqs sieve=%s on %s never launched S1'
+              % (sieve, mesh))
         if sieve == 'off':
             check((scanner.launches > 0).all(), 'countseqs sieve=off on %s: '
                   'an entry never launched K1 (%s)'
@@ -590,6 +789,7 @@ def scale_out(engine, tps, seqs, path, results, hit_off, by_path):
         else:
             check(n == 0, 'the dense mesh scan launched K1 %d times' % n)
         by_path['countseqs mesh=2x2 sieve=%s' % on] = n
+        S1_BY_PATH['countseqs mesh=2x2 sieve=%s' % on] = s1
         want = results[sieve]
         check(ret['stats'] == want['stats'], 'countseqs sieve=%s on %s: '
               'stats differ from the single-device scan' % (sieve, mesh))
@@ -599,12 +799,12 @@ def scale_out(engine, tps, seqs, path, results, hit_off, by_path):
                   'basecounts[%d] differ from the single-device scan'
                   % (sieve, mesh, t))
         say('h', 'countseqs sieve=%s on %s: %d reads in %.3fs = %.1f reads/s, '
-            'peak device memory %.2f GB, K1 launches per entry %s; '
-            'basecounts and stats equal (c) bit for bit' % (
+            'peak device memory %.2f GB, K1 launches per entry %s, S1 '
+            'launches %d; basecounts and stats equal (c) bit for bit' % (
                 sieve, mesh, ret['stats']['records_parsed'], dt,
                 ret['stats']['records_parsed'] / dt,
                 torch.cuda.max_memory_allocated() / 1e9,
-                scanner.launches.tolist()))
+                scanner.launches.tolist(), s1))
 
     # K1 on the bank-shard states that scan used, at its slice shapes: the
     # two 2,048-row slices of the first step, each on its entries' card, a
@@ -638,7 +838,7 @@ def scale_out(engine, tps, seqs, path, results, hit_off, by_path):
 
     mesh = parallel.make_mesh(1, 2, cards[:2])
     engine.config(device='cuda', sieve='off', mesh=mesh, **SCAN)
-    tps.cand_counts.launches = 0
+    zero_launches(tps)
     made = []
     got, dt, t_match, t_emit = timed_findseqs(engine, path, seqs, made)
     n = tps.cand_counts.launches
@@ -698,13 +898,16 @@ def scale_out(engine, tps, seqs, path, results, hit_off, by_path):
 
     # scan_sharded: two processes against one
     stats = reader.ReaderStats()
-    tps.cand_counts.launches = 0
+    zero_launches(tps)
     t0 = time.time()
     one = sharded_arrays(*multihost.scan_sharded(
         parts, seqs, mesh=parallel.make_mesh(2, 2, cards), stats=stats,
         **SCAN), stats)
     t_one = time.time() - t0
     by_path['scan_sharded mesh=2x2 1 process'] = tps.cand_counts.launches
+    S1_BY_PATH['scan_sharded mesh=2x2 1 process'] = \
+        tps.score_candidates.launches
+    check(tps.score_candidates.launches > 0, 'scan_sharded never launched S1')
     single = np.concatenate([c.ravel() for c in results['auto']['basecounts']])
     st = results['auto']['stats']
     check(np.array_equal(one['bc'], single)
@@ -715,6 +918,10 @@ def scale_out(engine, tps, seqs, path, results, hit_off, by_path):
           'scan_sharded in one process differs from the single-device scan')
     two, t_two = two_processes(parts, seqs)
     by_path['scan_sharded 2 processes'] = int(sum(r['launches'] for r in two))
+    S1_BY_PATH['scan_sharded 2 processes'] = int(sum(r['score_launches']
+                                                     for r in two))
+    check(all(r['score_launches'] > 0 for r in two),
+          'a scan_sharded process never launched S1')
     for i, r in enumerate(two):
         check(int(r['world']) == 2, 'process %d ran alone' % i)
         for key, value in one.items():
@@ -752,7 +959,7 @@ def gui_scan(faketk, engine, tps, fastq, suites, registry, stop=False):
         if button.cget('text') in suites:
             button.invoke()
     errors = len([c for c in faketk.messagebox.calls if c[0] == 'showerror'])
-    tps.cand_counts.launches = 0
+    zero_launches(tps)
     t0 = time.time()
     gui.start.invoke()
     check(gui.running, 'the GUI did not start the scan of %s' % fastq)
@@ -917,11 +1124,13 @@ def entry_phase(tps, by_path, card):
     from kvarq_tpu_torch import graft_entry
 
     fn, (codes, rl) = graft_entry.entry()
-    tps.cand_counts.launches = 0
+    zero_launches(tps)
     got = [t.cpu() for t in fn(codes, rl)]
     n = tps.cand_counts.launches
     check(n > 0, 'entry() never launched K1')
+    check(tps.score_candidates.launches > 0, 'entry() never launched S1')
     by_path['entry'] = n
+    S1_BY_PATH['entry'] = tps.score_candidates.launches
     cfn, (ccodes, crl) = graft_entry.entry('cpu')
     check(torch.equal(codes.cpu(), ccodes) and torch.equal(rl.cpu(), crl),
           'entry(): the example reads differ between the card and the CPU')
@@ -933,9 +1142,12 @@ def entry_phase(tps, by_path, card):
         'seqbasehits equal entry(device="cpu") exactly (B=%d, G=%d, %d hits); '
         'the step %.3f ms' % (n, len(codes), got[0].shape[1],
                              int(got[1][:-1].sum()), ms))
-    tps.cand_counts.launches = 0
+    zero_launches(tps)
     sc = graft_entry.dryrun_multichip(4)
     by_path['dryrun_multichip(4)'] = tps.cand_counts.launches
+    S1_BY_PATH['dryrun_multichip(4)'] = tps.score_candidates.launches
+    check(tps.score_candidates.launches > 0,
+          'dryrun_multichip(4) never launched S1')
     say('j', 'dryrun_multichip(4) on %s: the planted read hits, K1 launches '
         'per entry %s' % (sc.mesh, sc.launches.tolist()))
 
@@ -943,14 +1155,16 @@ def entry_phase(tps, by_path, card):
               timeout=600)
     bench = json.loads(out.strip().splitlines()[-1])
     by_path['device_bench'] = bench['cand_launches']
+    S1_BY_PATH['device_bench'] = bench['score_launches']
     check(bench['cand_launches'] > 0, 'device_bench never launched K1')
+    check(bench['score_launches'] > 0, 'device_bench never launched S1')
     say('j', 'device_bench: %d reads in batches of %d on %s in %.3fs: %.1f '
         'reads/s, %.2f TOP/s, %d hit weight, up to %d candidates per batch '
-        '(gather_k %d), K1 launches %d; %s' % (
+        '(gather_k %d), K1 launches %d, S1 launches %d; %s' % (
             bench['reads'], bench['batch'], bench['device'], bench['seconds'],
             bench['reads_per_s'], bench['tops'], bench['hit_weight'],
             bench['max_candidates'], bench['gather_k'],
-            bench['cand_launches'], card))
+            bench['cand_launches'], bench['score_launches'], card))
     out = run([sys.executable, '-m', 'kvarq_tpu_torch.tools.bench_scaling',
                '--max', '4'], timeout=600)
     scaling = json.loads(out.strip().splitlines()[-1])
@@ -1130,7 +1344,7 @@ def hitdiff_phase(engine, tps, by_path, card):
     os.makedirs(wdir, exist_ok=True)
     screen = tps.cand_counts
     shapes = collections.Counter()
-    cov = dict(launches=0, cases=0)
+    cov = dict(launches=0, cases=0, scored=0)
 
     def recorded(codes, rl, state, maxerrors, minoverlap, nch):
         if codes.device.type == 'cuda':
@@ -1141,9 +1355,11 @@ def hitdiff_phase(engine, tps, by_path, card):
         fastq, seqs = case[:2]
         sieve = engine._extra_config['sieve']
         before = tps.cand_counts.launches
+        scored = tps.score_candidates.launches
         engine.config(sieve='off', backend='device', device='cuda')
         got = engine.countseqs(fastq, seqs)
         cov['launches'] += tps.cand_counts.launches - before
+        cov['scored'] += tps.score_candidates.launches - scored
         engine.config(backend='numpy')
         want = engine.countseqs(fastq, seqs)
         engine.config(sieve=sieve, backend='device')
@@ -1200,11 +1416,14 @@ def hitdiff_phase(engine, tps, by_path, card):
           '%s' % sorted(seen))
     by_path['hitdiff findseqs'] = n
     by_path['hitdiff countseqs sieve=off'] = cov['launches']
+    S1_BY_PATH['hitdiff countseqs sieve=off'] = cov['scored']
+    check(cov['scored'] > 0, 'the hitdiff countseqs checks never launched S1')
     say('k', 'hitdiff --device cuda (full sweep): %d hits in %d cases equal '
         'ref_bench.c\'s tuple for tuple, %.1fs (the countseqs checks '
         'included); K1 launches %d on the hit path; countseqs sieve=off on '
-        'the card equals the numpy backend in all %d cases (K1 launches %d)'
-        % (total, ncases, dt, n, cov['cases'], cov['launches']))
+        'the card equals the numpy backend in all %d cases (K1 launches %d, '
+        'S1 launches %d)' % (total, ncases, dt, n, cov['cases'],
+                             cov['launches'], cov['scored']))
     say('k', 'K1 was given (Lpad, nch, maxerrors, minoverlap) x launches: %s'
         % ', '.join('(%d, %d, %d, %d) x %d' % (k + (v,))
                     for k, v in sorted(shapes.items())))
@@ -1287,7 +1506,7 @@ def paired_phase(engine, tps, seqs, windows, path, by_path, card):
     for variant, f1 in files.items():
         for sieve in ('auto', 'off'):
             outj = os.path.join(pdir, '%s.sieve-%s.json' % (variant, sieve))
-            tps.cand_counts.launches = 0
+            zero_launches(tps)
             t0 = time.time()
             cli_main(['-q', '-t', 'testsuites', 'scan', '-f', '-l', 'MTBC',
                       f1, outj], sieve)
@@ -1296,6 +1515,11 @@ def paired_phase(engine, tps, seqs, windows, path, by_path, card):
                   'launches %d' % (variant, sieve, n))
             if sieve == 'off':
                 by_path['cli scan paired %s sieve=off' % variant] = n
+            S1_BY_PATH['cli scan paired %s sieve=%s' % (
+                variant, 'on' if sieve == 'auto' else 'off')] = \
+                tps.score_candidates.launches
+            check(tps.score_candidates.launches > 0, 'paired %s sieve=%s: no '
+                  'S1 launch' % (variant, sieve))
             out[variant, sieve] = json.load(open(outj))
             walls[variant, sieve] = (wall, n)
     ref = out['plain', 'auto']
@@ -1366,9 +1590,12 @@ def main():
     say('a', 'torch %s cuda %s, %s x%d, card: %s' % (
         torch.__version__, torch.version.cuda, kind,
         torch.cuda.device_count(), card))
-    native_cuda.load('cand_screen.cu')
-    say('a', 'cand_screen.cu built in %.2fs (nvcc sm_90a)'
-        % native_cuda.build_seconds['cand_screen.cu'])
+    t0 = time.time()
+    native_cuda.load_all(KERNEL_SOURCES)
+    say('a', '%s built in %.2fs, at the same time (nvcc sm_90a: %s)' % (
+        ' and '.join(KERNEL_SOURCES), time.time() - t0, ', '.join(
+            '%s %.2fs' % (k, native_cuda.build_seconds[k])
+            for k in KERNEL_SOURCES)))
 
     suites = bench.load_mtbc()
     windows = bench.template_windows(suites)
@@ -1383,7 +1610,8 @@ def main():
                           os.path.getsize(path) / 1e6, time.time() - t0,
                           len(seqs)))
 
-    # (b) K1 against its plain version on one real main-path batch
+    # (b) K1 and S1 against their plain versions on one real main-path
+    # batch
     stamp(stamps, 'b')
     stats = reader.ReaderStats()
     batch = next(iter(reader.batches([path], ord(SCAN['Amin']),
@@ -1430,6 +1658,8 @@ def main():
            HBM_TBPS, k1b['bound_by'], 100 * k1b['bound_ms'] / k_ms, card))
     ref_ms = min(ref_ms, ref_ms2)
     k_ms = min(k_ms, k_ms2)
+    s1 = s1_phase(tps, native_cuda, codes, rl, state, got, e, mo, mm_ms,
+                  card)
 
     rng = np.random.RandomState(5)
     nbank = [''.join(rng.choice(list('ACGTN'), rng.randint(30, 300)))
@@ -1486,31 +1716,39 @@ def main():
                                           sum(ret['stats']['nseqhits'])))
 
     stamp(stamps, 'c')
-    # (c) the main path over the corpus: unsieved (K1) and sieved (dense)
-    rows = tts.score_rows(dev, state.Qp)
-    results = {}
+    # (c) the main path over the corpus: unsieved (K1, compaction, S1 on
+    # the candidates) and sieved (S1 on every read)
+    results, peak = {}, {}
     for sieve in ('off', 'auto'):
         engine.config(device='cuda', sieve=sieve, **SCAN)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        if sieve == 'off':
-            tps.cand_counts.launches = 0
+        zero_launches(tps)
         t0 = time.time()
         ret = engine.countseqs(path, seqs)
         torch.cuda.synchronize()
         dt = time.time() - t0
+        on = 'on' if sieve == 'auto' else 'off'
+        S1_BY_PATH['countseqs sieve=%s' % on] = tps.score_candidates.launches
+        check(tps.score_candidates.launches > 0, 'countseqs sieve=%s never '
+              'launched S1' % on)
+        peak[sieve] = torch.cuda.max_memory_allocated()
         if sieve == 'off':
             launches = tps.cand_counts.launches
             check(launches > 0, 'the unsieved scan never launched K1')
+        else:
+            check(tps.cand_counts.launches == 0, 'the sieved scan launched '
+                  'K1')
         nrec = ret['stats']['records_parsed']
         check(nrec == N_READS, 'parsed %d of %d records' % (nrec, N_READS))
         results[sieve] = ret
         say('c', 'sieve=%s: %d reads in %.3fs = %.1f reads/s, %d template '
-            'hits, peak device memory %.2f GB, steps of %d-read batches '
-            'scored in passes of <= %d reads%s' % (
+            'hits, peak device memory %.2f GB, steps of %d-read batches, '
+            'S1 launches %d%s; %s' % (
                 sieve, nrec, dt, nrec / dt, sum(ret['stats']['nseqhits']),
-                torch.cuda.max_memory_allocated() / 1e9, MAIN_B, rows,
-                ', K1 launches %d' % launches if sieve == 'off' else ''))
+                peak[sieve] / 1e9, MAIN_B, tps.score_candidates.launches,
+                ', K1 launches %d' % launches if sieve == 'off' else '',
+                card))
     for a, b in zip(results['off']['basecounts'],
                     results['auto']['basecounts']):
         check(np.array_equal(a, b), 'sieve on/off basecounts differ')
@@ -1542,26 +1780,29 @@ def main():
         torch.cuda.synchronize()
         t_dev = time.time() - t0
         say('c', 'breakdown sieve=%s: reader%s alone %.3fs (%d reads passed '
-            'in %d batches); scanner alone %.3fs (gather_k ends at %d, '
-            'scoring passes of <= %d reads)' % (
+            'in %d batches); scanner alone %.3fs (gather_k ends at %d)' % (
                 sieve, '+sieve' if sieve == 'auto' else '', t_read,
-                sum(len(r) for _, r in held), len(held), t_dev, sc.gather_k,
-                next(iter(sc._ctx.values()))['rows']))
+                sum(len(r) for _, r in held), len(held), t_dev, sc.gather_k))
+        if sieve == 'off':
+            unsieved = held
         del held, sc
+    no_sync_gate(tps, tts, reader, dev, seqs, unsieved, results['off'], card)
+    del unsieved
 
     # where the time goes: one scan per mode under torch.profiler (its
     # wall time includes the profiler's own cost)
     for sieve in ('off', 'auto'):
         engine.config(device='cuda', sieve=sieve, **SCAN)
-        wall, busy, k1, top = traced_scan(engine.countseqs, path, seqs)
+        wall, busy, k1, s1t, top = traced_scan(engine.countseqs, path, seqs)
         if busy == 0:
             say('trace', 'sieve=%s: wall %.3fs; kernel time not measured '
                 '(the profiler saw no device activity)' % (sieve, wall))
             continue
         say('trace', 'sieve=%s: wall %.3fs, kernel time on the card %.3fs '
-            '(%.1f%% busy), K1 %.3fs; longest: %s' % (
-                sieve, wall, busy, 100 * busy / wall, k1,
-                '; '.join('%s %.1f ms' % kv for kv in top)))
+            '(%.1f%% busy), K1 %.3fs, S1 %.3fs (%.1f%% of the kernel time); '
+            'longest: %s' % (
+                sieve, wall, busy, 100 * busy / wall, k1, s1t,
+                100 * s1t / busy, '; '.join('%s %.1f ms' % kv for kv in top)))
 
     stamp(stamps, 'g')
     # (g) the hit path (findseqs) over the same corpus: every batch through
@@ -1570,7 +1811,7 @@ def main():
     hit = {}
     for sieve in ('off', 'auto'):
         engine.config(device='cuda', sieve=sieve, **SCAN)
-        tps.cand_counts.launches = 0
+        zero_launches(tps)
         got, dt, t_match, t_emit = timed_findseqs(engine, path, seqs)
         n = tps.cand_counts.launches
         check(n > 0, 'findseqs sieve=%s never launched K1' % sieve)
@@ -1596,7 +1837,7 @@ def main():
         '8192 reads both equal the numpy oracle tuple for tuple (%d hits)'
         % (len(hit['off']['hits']), len(found['hits'])))
     engine.config(device='cuda', sieve='off', **SCAN)
-    wall, busy, k1, top = traced_scan(engine.findseqs, path, seqs)
+    wall, busy, k1, _, top = traced_scan(engine.findseqs, path, seqs)
     say('trace', 'findseqs sieve=off: wall %.3fs, kernel time on the card '
         '%.3fs (%.1f%% busy), K1 %.3fs; longest: %s' % (
             wall, busy, 100 * busy / wall, k1,
@@ -1611,7 +1852,7 @@ def main():
     say('setup', 'hit-dense corpus %s ready in %.1fs' % (
         os.path.basename(dpath), time.time() - t0))
     engine.config(device='cuda', sieve='off', **SCAN)
-    tps.cand_counts.launches = 0
+    zero_launches(tps)
     got, dt, t_match, t_emit = timed_findseqs(engine, dpath, seqs)
     n = tps.cand_counts.launches
     check(n > 0, 'hit-dense findseqs never launched K1')
@@ -1670,7 +1911,23 @@ def main():
         'bound_ms': k1b['bound_ms'], 'bound_by': k1b['bound_by'],
         # no single PyTorch call computes the screen; matmul_ms is the fp16
         # one-hot product alone, as context
-        'library_ms': None, 'matmul_ms': mm_ms}]}), flush=True)
+        'library_ms': None, 'matmul_ms': mm_ms}, {
+        'name': 'score_step', 'route': 'cuda',
+        'source': 'kvarq_tpu_torch/csrc/score_step.cu',
+        # not a TPU kernel: the exact scoring kvarq_tpu leaves to XLA
+        # (score_full; score_gathered at :385)
+        'replaces': 'kvarq_tpu/engine/pallas_scan.py:362',
+        'launches': S1_BY_PATH['countseqs sieve=on'],
+        'launches_by_path': S1_BY_PATH,
+        'max_abs_err': s1['max_abs_err'], 'ms': s1['dense']['ms'],
+        'plain_ms': s1['dense']['plain_ms'],
+        'bound_ms': s1['dense']['bound_ms'],
+        'bound_by': s1['dense']['bound_by'],
+        # no PyTorch call computes the scoring; matmul_ms is the fp16
+        # product alone, as context
+        'library_ms': None, 'matmul_ms': mm_ms,
+        'forms': {k: s1[k] for k in ('dense', 'gathered', 'overflow')}}]}),
+        flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,
         'count': torch.cuda.device_count()}}), flush=True)

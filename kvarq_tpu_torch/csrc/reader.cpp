@@ -1646,6 +1646,17 @@ static void scan_newlines(const uint8_t* base, size_t from, size_t to,
         if (base[i] == '\n') out->push_back((int32_t)(i - rel));
 }
 
+// wake the consumer after split_eof or split_failed was set under in_mtx
+// (held by ``in_lock``).  The consumer tests those flags under out_mtx and
+// then waits on out_cv, so the notify must not land between its test and
+// its wait: out_mtx is taken once before notifying -- after in_mtx is
+// released, since the consumer may take in_mtx while it holds out_mtx.
+void wake_consumer(Reader* r, std::unique_lock<std::mutex>& in_lock) {
+    in_lock.unlock();
+    { std::lock_guard<std::mutex> l(r->out_mtx); }
+    r->out_cv.notify_all();
+}
+
 // pull the next record-aligned span from the shared stream (the
 // reference's mutex-guarded fastq_read + fastq_rewind, workhorse.c:746,
 // :696-718 -- but via exact 4-newline counting instead of the rewind
@@ -1676,7 +1687,7 @@ WorkItem* pull_work(Reader* r) {
                 if (!open_stream(s, &r->error, r->nthreads)) {
                     r->split_error = r->error;
                     r->split_failed = true;
-                    r->out_cv.notify_all();
+                    wake_consumer(r, l);
                     return nullptr;
                 }
             }
@@ -1770,7 +1781,7 @@ WorkItem* pull_work(Reader* r) {
             if (n < 0) {
                 r->split_error = r->error;
                 r->split_failed = true;
-                r->out_cv.notify_all();
+                wake_consumer(r, l);
                 return nullptr;
             }
             continue;
@@ -1806,7 +1817,7 @@ WorkItem* pull_work(Reader* r) {
                 if (fill_buf(r) < 0) {
                     r->split_error = r->error;
                     r->split_failed = true;
-                    r->out_cv.notify_all();
+                    wake_consumer(r, l);
                     return nullptr;
                 }
                 continue;
@@ -1814,7 +1825,7 @@ WorkItem* pull_work(Reader* r) {
             // trailing data without a full record is silently dropped
             // (workhorse.c:1032-1034)
             r->split_eof = true;
-            r->out_cv.notify_all();
+            wake_consumer(r, l);
             return nullptr;
         }
         WorkItem* it = new WorkItem();

@@ -5,13 +5,16 @@ kvarq_tpu/engine/native.py for the device side.
 Each source is compiled on first use with ``nvcc`` into a shared library
 with a plain C interface, loaded through ``ctypes`` (no PyTorch headers,
 no ninja: the build takes seconds).  The library name carries the
-source's sha256, so an edited source is never served by a stale build.
-Libraries go to ``build/kvarq_tpu_torch/`` at the repository root.
+sha256 of the source and the headers it includes, so an edited source
+is never served by a stale build.  Two sources build at the same time
+when two threads load them (:py:func:`load_all`).  Libraries go to
+``build/kvarq_tpu_torch/`` at the repository root.
 '''
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,6 +29,7 @@ BUILD = os.path.join(os.path.dirname(os.path.dirname(HERE)), 'build',
 ARCH = ['-gencode', 'arch=compute_90a,code=sm_90a']
 
 _lock = threading.Lock()
+_name_locks = {}
 _libs = {}
 # seconds spent in nvcc per source (0.0 when a current build was found)
 build_seconds = {}
@@ -42,9 +46,27 @@ def _nvcc():
                        'the kvarq_tpu_torch kernels')
 
 
+def _sources(name, seen=None):
+    ''' ``name`` and the csrc/ headers it includes (``#include "x.h"``),
+        recursively, in the order first met '''
+    seen = [] if seen is None else seen
+    seen.append(name)
+    with open(os.path.join(CSRC, name)) as fd:
+        for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', fd.read(),
+                              re.M):
+            if inc not in seen and os.path.exists(os.path.join(CSRC, inc)):
+                _sources(inc, seen)
+    return seen
+
+
 def src_hash(name):
-    with open(os.path.join(CSRC, name), 'rb') as fd:
-        return hashlib.sha256(fd.read()).hexdigest()[:16]
+    ''' sha256 of the source and of every header of csrc/ it includes, so
+        an edited shared header is never served by a stale build '''
+    digest = hashlib.sha256()
+    for src in _sources(name):
+        with open(os.path.join(CSRC, src), 'rb') as fd:
+            digest.update(fd.read())
+    return digest.hexdigest()[:16]
 
 
 def _build(name, lib_path, digest):
@@ -71,6 +93,8 @@ def load(name):
     ''' :returns: the ``ctypes.CDLL`` of ``csrc/<name>``, building it when
         no library of the current source exists '''
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _libs:
             return _libs[name]
         digest = src_hash(name)
@@ -91,3 +115,11 @@ def load(name):
                                % (lib_path, name))
         _libs[name] = lib
         return lib
+
+
+def load_all(names):
+    ''' load every source of ``names``, the builds run at the same time
+        (one nvcc each) '''
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(names)) as pool:
+        return list(pool.map(load, names))

@@ -14,17 +14,22 @@ the exact scoring of one batch of reads.
   launches the hand-written kernel csrc/cand_screen.cu (the port of the
   TPU kernel ``_cand_kernel``), on a CPU tensor its plain version
   :py:func:`cand_counts_ref`.
+- :py:func:`score_candidates` is the exact scoring of a list of rows:
+  on a CUDA tensor the hand-written kernel csrc/score_step.cu (S1: the
+  match product with a ``mode_weights`` epilogue and the coverage fold,
+  int64 atomics; the device work kvarq_tpu leaves to XLA in
+  ``score_full``), on a CPU tensor its plain version
+  :py:func:`score_candidates_ref`.
 - :py:func:`scan_step_banked` is one device step in dense mode (exact
-  scoring of every read) or gathered mode (screen, compaction into
-  ``gather_k`` slots, exact scoring of the candidates, full-batch
-  fallback on overflow).
+  scoring of every read) or gathered mode (screen, compaction on the
+  device with :py:func:`compact`, exact scoring of every candidate).  On
+  the card it never waits on the host.
 
-Exact scoring keeps the JAX package's quantities but not its layout:
-``w``/``ov`` from the shared f32 closed form, then the per-template sums
-and the coverage are accumulated from the non-zero ``(read, shift)``
-pairs with integer ``index_add_`` -- the same counts as the
-``read5.T @ w`` contraction plus diagonal fold, exact in int64 with no
-``[Lpad*5, Q]`` intermediate and no reduced-precision product.
+Exact scoring keeps the JAX package's quantities but not its layout: the
+per-template sums and the coverage are accumulated from the ``(read,
+shift)`` pairs of non-zero weight in int64 -- the same counts as the
+``read5.T @ w`` contraction plus diagonal fold, with no ``[Lpad*5, Q]``
+intermediate and no reduced-precision product.
 '''
 
 import ctypes
@@ -202,7 +207,8 @@ def state_from_numpy(K, qmeta, tseg, Lpad, G, T, device):
 def match_counts(codes, K, nch):
     ''' [B, Qp] matching-base counts: one-hot reads @ K (a plain product,
         left to cuBLAS as the JAX package leaves it to XLA) '''
-    flat = one_hot(codes, nch, K.dtype).reshape(codes.shape[0], -1)
+    flat = one_hot(codes, nch, K.dtype).reshape(codes.shape[0],
+                                                codes.shape[1] * nch)
     return flat @ K
 
 
@@ -316,23 +322,6 @@ def _coverage(codes, b, q, w, state):
     return bc.view(encode.NBASE, G)
 
 
-def score(codes, rl, state, maxerrors, minoverlap, rows=None):
-    ''' exact scoring of every row: ``(basecount [5, G], seqhits [T+1],
-        seqbasehits [T+1])``, all int64.  ``rows`` bounds the reads scored
-        per pass, and with it the ``[rows, Qp]`` temporaries (None: all
-        at once). '''
-    B = codes.shape[0]
-    if not rows or rows >= B:
-        return _score(codes, rl, state, maxerrors, minoverlap)
-    total = None
-    for s in range(0, B, rows):
-        part = _score(codes[s:s + rows], rl[s:s + rows], state, maxerrors,
-                      minoverlap)
-        total = part if total is None else [t.add_(p) for t, p in
-                                            zip(total, part)]
-    return tuple(total)
-
-
 def _score(codes, rl, state, maxerrors, minoverlap):
     from kvarq_tpu_torch.engine.tensor_scan import mode_weights
     qm = state.qmeta
@@ -352,13 +341,144 @@ def _score(codes, rl, state, maxerrors, minoverlap):
     return _coverage(codes, b, q, wv, state), seqhits, seqbasehits
 
 
-def nonzero_static(mask, size):
-    ''' ``jnp.nonzero(mask, size=size, fill_value=0)``: the first ``size``
-        indices of the set entries, padded with 0 '''
-    idx = torch.nonzero(mask).flatten()[:size]
-    out = torch.zeros(size, dtype=torch.int64, device=mask.device)
-    out[:len(idx)] = idx
-    return out
+def score_candidates_ref(codes, rl, state, maxerrors, minoverlap, idx=None,
+                         count=None, rows=None):
+    ''' plain PyTorch version of :py:func:`score_candidates`: the rows
+        ``idx[:count]`` (every row when ``idx`` is None; all of ``idx``
+        when ``count`` is None) scored as kvarq_tpu's ``score_full``: the
+        match product, ``mode_weights`` over ``[rows, Qp]``, the non-zero
+        ``(read, shift)`` pairs, integer ``index_add_``.  It reads the
+        count on the host.  ``rows`` bounds the reads per pass, and with
+        it the ``[rows, Qp]`` temporaries (None: all at once). '''
+    if idx is not None:
+        n = len(idx) if count is None else int(count)
+        sel = idx[:n].long()
+        codes, rl = codes[sel], rl[sel]
+    B = codes.shape[0]
+    if not rows or rows >= B:
+        return _score(codes, rl, state, maxerrors, minoverlap)
+    total = None
+    for s in range(0, B, rows):
+        part = _score(codes[s:s + rows], rl[s:s + rows], state, maxerrors,
+                      minoverlap)
+        total = part if total is None else [t.add_(p) for t, p in
+                                            zip(total, part)]
+    return tuple(total)
+
+
+def _score_lib():
+    lib = native_cuda.load('score_step.cu')
+    fn = lib.kvq_score_step
+    if fn.argtypes is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, vp, vp, i, i, vp, i, vp, vp, vp, vp, vp,
+                       i, i, i, i, i, i, vp]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_score_args(codes, rl, state, idx, count):
+    ''' the types, shapes and devices :py:func:`score_candidates` takes on
+        either device; raises ValueError '''
+    B = codes.shape[0] if codes.dim() == 2 else -1
+    args = [('codes', codes, torch.uint8, (B, state.Lpad)),
+            ('rl', rl, torch.int32, (B,)),
+            ('bank', state.bank, torch.uint8, tuple(state.bank.shape)),
+            ('qmeta', state.qmeta, torch.int32, (8, state.Qp)),
+            ('tseg', state.tseg, torch.int32, (state.Qp,))]
+    if idx is not None:
+        args.append(('idx', idx, torch.int32, (min(len(idx), B),)))
+    if count is not None:
+        if idx is None or count.numel() != 1:
+            raise ValueError('score_candidates: a count is one element, '
+                             'given with an idx')
+        args.append(('count', count, torch.int32, tuple(count.shape)))
+    for name, t, dtype, shape in args:
+        if t.device != codes.device or t.dtype != dtype \
+                or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                'score_candidates: %s must be a contiguous %s tensor of '
+                'shape %s on %s (got %s %s on %s)' % (
+                    name, dtype, shape, codes.device, t.dtype,
+                    tuple(t.shape), t.device))
+
+
+def score_candidates(codes, rl, state, maxerrors, minoverlap, idx=None,
+                     count=None, grid_rows=None, rows=None):
+    '''
+    exact scoring of rows of one batch: ``(basecount [5, G], seqhits
+    [T+1], seqbasehits [T+1])``, int64 -- kvarq_tpu's ``score_full`` over
+    the rows (its ``score_gathered`` when they are the candidates).
+
+    :param codes: uint8 ``[B, Lpad]`` read codes
+    :param rl: int32 ``[B]`` read lengths (0 for padding rows)
+    :param idx: int32 ``[n]`` batch rows to score (None: every row)
+    :param count: int32 tensor of one element on the device of ``codes``:
+        score ``idx[:count]`` (None: all of ``idx``)
+    :param grid_rows: the rows the kernel's grid is sized for (blocks loop
+        over the rest, so any count is scored in full); None: all
+    :param rows: reads per pass of the plain version
+
+    On a CPU tensor this is :py:func:`score_candidates_ref`.  On a CUDA
+    tensor it launches csrc/score_step.cu (S1) on the current stream, or
+    raises; the count is read on the card, never on the host.
+    ``score_candidates.launches`` counts those launches.
+    '''
+    _check_score_args(codes, rl, state, idx, count)
+    if codes.device.type == 'cpu':
+        return score_candidates_ref(codes, rl, state, maxerrors, minoverlap,
+                                    idx, count, rows)
+    if codes.device.type != 'cuda':
+        raise ValueError('score_candidates: unsupported device %s'
+                         % codes.device)
+    B, Lpad = codes.shape
+    if Lpad % 4 or codes.data_ptr() % 4 or state.bank.numel() % 4:
+        raise ValueError('score_candidates: Lpad, the codes pointer and the '
+                         'bank length must be multiples of 4')
+    G, T = state.G, state.T
+    bc = torch.zeros(encode.NBASE * G, dtype=torch.int64, device=codes.device)
+    sh = torch.zeros(T + 1, dtype=torch.int64, device=codes.device)
+    sbh = torch.zeros(T + 1, dtype=torch.int64, device=codes.device)
+    cap = B if idx is None else len(idx)
+    if cap == 0:
+        return bc.view(encode.NBASE, G), sh, sbh
+    grid = cap if grid_rows is None else max(1, min(grid_rows, cap))
+    with torch.cuda.device(codes.device):
+        err = _score_lib()(
+            codes.data_ptr(), rl.data_ptr(),
+            None if idx is None else idx.data_ptr(),
+            None if count is None else count.data_ptr(), cap, grid,
+            state.bank.data_ptr(), state.bank.numel() // 4,
+            state.qmeta.data_ptr(), state.tseg.data_ptr(), bc.data_ptr(),
+            sh.data_ptr(), sbh.data_ptr(), Lpad, state.Qp, G, state.nch,
+            maxerrors, minoverlap,
+            torch.cuda.current_stream(codes.device).cuda_stream)
+    if err:
+        raise RuntimeError('score_step kernel launch failed: CUDA error %d'
+                           % err)
+    score_candidates.launches += 1
+    return bc.view(encode.NBASE, G), sh, sbh
+
+
+score_candidates.launches = 0
+
+
+def compact(mask, size=None):
+    ''' compaction on the device of ``mask`` with no host sync: ``(idx,
+        count)`` -- ``idx [size]`` int32 holds the indices of the set
+        entries in order and 0 past them (``jnp.nonzero(mask, size=size,
+        fill_value=0)``), ``count`` the number of set entries, a 0-d int32
+        tensor that may exceed ``size``.  ``size`` defaults to
+        ``len(mask)``.  A prefix sum, then a scatter with a dump slot. '''
+    n = mask.shape[0]
+    size = n if size is None else size
+    dev = mask.device
+    csum = torch.cumsum(mask, 0, dtype=torch.int32)
+    count = csum[-1] if n else torch.zeros((), dtype=torch.int32, device=dev)
+    pos = torch.where(mask & (csum <= size), csum - 1, size)
+    idx = torch.zeros(size + 1, dtype=torch.int32, device=dev)
+    idx.scatter_(0, pos.long(), torch.arange(n, dtype=torch.int32, device=dev))
+    return idx[:size], count
 
 
 def scan_step_banked(codes, rl, state, maxerrors, minoverlap, gather_k=768,
@@ -366,26 +486,25 @@ def scan_step_banked(codes, rl, state, maxerrors, minoverlap, gather_k=768,
     '''
     one scan step over ``codes [B, Lpad] uint8``, ``rl [B] int32``:
     :returns: ``(basecount [5, G], seqhits [T+1], seqbasehits [T+1],
-        count)`` -- int64 tensors plus the number of candidate reads (0 in
-        dense mode), which drives TensorScanner's adaptive ``gather_k``.
-        ``rows`` bounds the reads per exact-scoring pass (:py:func:`score`).
+        count)`` -- int64 tensors, and the number of candidate reads (0 in
+        dense mode) as a 0-d int32 tensor on the device of ``codes``, which
+        drives TensorScanner's adaptive ``gather_k``.  ``rows`` bounds the
+        reads per pass of the plain scoring (:py:func:`score_candidates`).
 
     Dense mode (``gather_k`` 0, or not below B) scores every read.
-    Otherwise the candidate screen flags reads, up to ``gather_k`` of them
-    are compacted (``nonzero`` with fill 0; rows past the count are masked
-    to empty reads) and scored exactly; more than ``gather_k`` candidates
-    fall back to scoring the whole batch.  The count is synchronised to
-    the host to choose the branch.
+    Otherwise the candidate screen flags reads, they are compacted on the
+    device (:py:func:`compact`) and scored exactly; the scoring's grid is
+    sized for ``gather_k`` of them and covers more when more flag, which
+    equals kvarq_tpu's full-batch fallback (a read the screen does not
+    flag scores nothing).  On a CUDA tensor nothing here reads a device
+    value on the host, and nothing of size ``[B, Qp]`` is allocated.
     '''
     B = codes.shape[0]
     if not gather_k or gather_k >= B:
-        return (*score(codes, rl, state, maxerrors, minoverlap, rows), 0)
+        count = torch.zeros((), dtype=torch.int32, device=codes.device)
+        return (*score_candidates(codes, rl, state, maxerrors, minoverlap,
+                                  rows=rows), count)
     hit = cand_counts(codes, rl, state, maxerrors, minoverlap, state.nch) > 0
-    count = int(hit.sum())
-    if count > gather_k:
-        return (*score(codes, rl, state, maxerrors, minoverlap, rows), count)
-    idx = nonzero_static(hit, gather_k)
-    fill = torch.arange(gather_k, device=codes.device) < count
-    codes_g = torch.where(fill[:, None], codes[idx], encode.CODE_READ_JUNK)
-    rl_g = rl[idx] * fill
-    return (*score(codes_g, rl_g, state, maxerrors, minoverlap, rows), count)
+    idx, count = compact(hit)
+    return (*score_candidates(codes, rl, state, maxerrors, minoverlap, idx,
+                              count, gather_k, rows), count)

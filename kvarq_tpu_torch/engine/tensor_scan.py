@@ -71,10 +71,13 @@ def mode_weights(matches, rl_col, d_row, seql_row, valid_row,
 # reads per exact-scoring pass on the CPU: a bound in [B, Q] elements (as
 # the JAX XLA path)
 ELEM_BUDGET = 96 * 1024 * 1024
-# on the card: device bytes per [B, Qp] element of dense scoring's
+# on the card: device bytes per [B, Qp] element of the plain scoring's
 # temporaries (match counts, mode_weights' f32 and bool intermediates, w
 # and ov; 23.75 GB at 16384 x 40064 on an H100), and the share of the
-# card's memory they may take
+# card's memory they may take.  The scan's own scoring on the card is the
+# kernel S1, which holds no [B, Qp] tensor: these size the passes of the
+# plain version (pallas_scan.score_candidates_ref) and of the hit path's
+# extraction (match_xla).
 SCORE_BYTES_PER_ELEM = 36
 SCORE_MEM_SHARE = 0.5
 
@@ -95,16 +98,20 @@ class TensorScanner:
     ''' single-device scan driver: accumulates bank-position base counts
         and per-template stats over many batches.
 
-        On the card a step is the whole batch (one candidate-screen
-        launch) and exact scoring runs in passes of :py:func:`score_rows`
-        reads; on the CPU the plain screen materialises ``[B, Qp]`` too,
-        so the step itself is :py:func:`score_rows` reads.
-        Accumulators live on the device in int64 (exact at any step size)
-        and are flushed into the host totals every
-        :py:data:`FLUSH_STEPS` steps.  ``gather_k`` follows the JAX
-        package's adaptive policy: start at 768 (``$KVARQ_GATHER_K``),
-        grow over :py:data:`GATHER_BUCKETS` when the observed candidate
-        count overflows, terminal dense mode past the last bucket. '''
+        On the card a step is the whole batch: the candidate screen K1
+        (gathered mode) and the exact scoring S1, one launch each, with no
+        host round trip; the candidate count stays on the card (its
+        maximum over the steps, ``torch.maximum``).  On the CPU the plain
+        screen and scoring materialise ``[B, Qp]``, so the step itself is
+        :py:func:`score_rows` reads.  Accumulators live on the device in
+        int64 (exact at any step size) and are flushed into the host
+        totals, the candidate maximum with them in one transfer, every
+        :py:data:`FLUSH_STEPS` steps; besides, the first step of each
+        context reads its count once (a hit-dense input adapts at once).
+        ``gather_k`` follows the JAX package's adaptive policy: start at
+        768 (``$KVARQ_GATHER_K``), grow over :py:data:`GATHER_BUCKETS`
+        when the observed candidate count overflows, terminal dense mode
+        past the last bucket. '''
 
     FLUSH_STEPS = 64
     GATHER_BUCKETS = (768, 1536, 3072, 6144)
@@ -131,7 +138,7 @@ class TensorScanner:
         self.seqhits = np.zeros(self.T, dtype=np.int64)
         self.seqbasehits = np.zeros(self.T, dtype=np.int64)
         for ctx in self._ctx.values():
-            ctx.update(acc=None, steps=0, candmax=0)
+            ctx.update(acc=None, steps=0)
 
     def _context(self, Lpad):
         if Lpad not in self._ctx:
@@ -140,7 +147,7 @@ class TensorScanner:
             self._ctx[Lpad] = dict(
                 bank=bank, state=state,
                 rows=score_rows(self.device, state.Qp),
-                acc=None, steps=0, candmax=0, peeked=False)
+                acc=None, steps=0, peeked=False)
             lo.debug('Lpad %d: bank G=%d Qp=%d nch=%d, %d reads per scoring '
                      'pass' % (Lpad, state.G, state.Qp, state.nch,
                                self._ctx[Lpad]['rows']))
@@ -176,17 +183,18 @@ class TensorScanner:
             codes, rl, ctx['state'], self.maxerrors, self.minoverlap,
             self.gather_k, ctx['rows'])
         if ctx['acc'] is None:
-            ctx['acc'] = [bc, sh, sbh]
+            ctx['acc'] = [bc, sh, sbh, count]
         else:
             for a, d in zip(ctx['acc'], (bc, sh, sbh)):
                 a += d
-        ctx['candmax'] = max(ctx['candmax'], count)
+            ctx['acc'][3] = torch.maximum(ctx['acc'][3], count)
         ctx['steps'] += 1
         if self._gather_auto and self.gather_k and not ctx['peeked']:
             # a hit-dense input overflows from its first step: adapt now
-            # instead of paying the full-batch fallback until the flush
+            # (one scalar read back per context) instead of scoring the
+            # overflow until the flush
             ctx['peeked'] = True
-            if self._adapt_gather(Lpad, count):
+            if self._adapt_gather(Lpad, int(count)):
                 return
         if ctx['steps'] >= self.FLUSH_STEPS:
             self._flush(Lpad)
@@ -196,14 +204,18 @@ class TensorScanner:
         ctx = self._ctx[Lpad]
         if ctx['acc'] is None:
             return
-        bc, sh, sbh = (a.cpu().numpy() for a in ctx['acc'])
+        bc, sh, sbh, cm = ctx['acc']
+        # one transfer: the accumulators and the candidate maximum
+        flat = torch.cat([bc.flatten(), sh, sbh, cm.view(1).long()]) \
+            .cpu().numpy()
         host = self.basecounts.setdefault(
             Lpad, np.zeros((encode.NBASE, ctx['bank'].G), dtype=np.int64))
-        host += bc
-        self.seqhits += sh[:self.T]
-        self.seqbasehits += sbh[:self.T]
-        candmax = ctx['candmax']
-        ctx.update(acc=None, steps=0, candmax=0)
+        nbc = bc.numel()
+        host += flat[:nbc].reshape(host.shape)
+        self.seqhits += flat[nbc:nbc + self.T]
+        self.seqbasehits += flat[nbc + self.T + 1:nbc + 2 * self.T + 1]
+        candmax = int(flat[-1])
+        ctx.update(acc=None, steps=0)
         if adapt:
             self._adapt_gather(Lpad, candmax)
 

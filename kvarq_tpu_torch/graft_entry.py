@@ -5,8 +5,9 @@ Entry points of the port (counterpart of the repository's
 - :py:func:`entry` -- one scan step on the flagship workload (the full
   MTBC template bank against a batch of 512 reads): the gathered step
   ``pallas_scan.scan_step_banked`` (candidate screen, compaction, exact
-  scoring) on either device; the screen is the hand-written kernel on
-  the card and its plain version on the CPU.
+  scoring) on either device; the screen and the scoring are the
+  hand-written kernels K1 and S1 on the card, with no host round trip,
+  and their plain versions on the CPU.
 - :py:func:`dryrun_multichip` -- one sharded scan step on a mesh of
   ``n_devices`` entries (:py:func:`kvarq_tpu_torch.parallel.dryrun`).
 

@@ -20,9 +20,10 @@ entry, so the merged result equals the single-device scan bit for bit.
 
 The entries run one after another from the calling thread.  On one card
 (a mesh that repeats it, as the tests and ``chip_smoke.py`` build) they
-share one stream, so their temporaries do not add up; the gathered step
-synchronises its candidate count to the host, which serialises the
-entries of a multi-card mesh (ROADMAP queue 1, speed work).
+share one stream, so their temporaries do not add up.  A step reads
+nothing back to the host (the candidate count stays on each entry's
+card), so the entries of a multi-card mesh are enqueued without waiting;
+each card runs its own entries in turn on its current stream.
 '''
 
 import numpy as np

@@ -11,9 +11,10 @@ them planted from template loci; up to 32 distinct batches (the JAX
 tool's fused sub-batches) built on the host and uploaded once, then
 ``--batches`` steps of ``pallas_scan.scan_step_banked`` with the
 scanner's starting ``gather_k`` (``KVARQ_GATHER_K``, 768) taking them in
-turn, the step results summed in int64 on the device.  One untimed
-warm-up step; ``torch.cuda.synchronize()`` before the clock stops.
-TOP/s counts the one-hot match product, ``2 * reads * Lpad * nch *
+turn, the step results summed in int64 on the device and the candidate
+count kept there (its maximum is read once, after the clock stops).  One
+untimed warm-up step; ``torch.cuda.synchronize()`` before the clock
+stops.  TOP/s counts the one-hot match product, ``2 * reads * Lpad * nch *
 Qp``, as the JAX tool does.  kvarq_tpu's ``--fuse`` (dispatch fusing)
 has no counterpart.
 
@@ -68,8 +69,8 @@ def main(argv=None):
     state = pallas_scan.device_arrays(bank, len(seqs), dev)
     rows = tensor_scan.score_rows(dev, state.Qp)
     gather_k = tensor_scan.default_gather_k()[0]
-    print('bank G=%d Qp=%d nch=%d on %s in %.1fs; gather_k %d, scoring '
-          'passes of <= %d reads' % (bank.G, state.Qp, state.nch, name,
+    print('bank G=%d Qp=%d nch=%d on %s in %.1fs; gather_k %d, plain '
+          'scoring passes of <= %d reads' % (bank.G, state.Qp, state.nch, name,
                                      time.time() - t0, gather_k, rows),
           file=sys.stderr)
 
@@ -110,14 +111,18 @@ def main(argv=None):
     print('warm-up step: %.2fs' % (time.time() - t0), file=sys.stderr)
 
     launches = pallas_scan.cand_counts.launches
-    acc, candmax = None, 0
+    scored = pallas_scan.score_candidates.launches
+    acc, candmax = None, None
     t0 = time.time()
     for k in range(args.batches):
+        # the step count stays on the device: no host round trip per step
         acc, count = step(k, acc)
-        candmax = max(candmax, count)
+        candmax = count if candmax is None else torch.maximum(candmax,
+                                                              count)
     sync()
     dt = time.time() - t0
     launches = pallas_scan.cand_counts.launches - launches
+    scored = pallas_scan.score_candidates.launches - scored
 
     reads = args.batches * args.batch
     ops = 2.0 * reads * LPAD * state.nch * state.Qp
@@ -128,7 +133,8 @@ def main(argv=None):
         'metric': 'device_bench', 'device': name, 'reads': reads,
         'batch': args.batch, 'seconds': dt, 'reads_per_s': reads / dt,
         'tops': ops / dt / 1e12, 'hit_weight': hits, 'gather_k': gather_k,
-        'max_candidates': candmax, 'cand_launches': launches}))
+        'max_candidates': int(candmax), 'cand_launches': launches,
+        'score_launches': scored}))
 
 
 if __name__ == '__main__':

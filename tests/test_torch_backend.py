@@ -386,6 +386,28 @@ def test_writers_round_trip_through_the_reader(compressed, variant):
         gz_bench.drain(files['plain'], 2)[:3]
 
 
+def test_threaded_reader_always_reaches_its_end():
+    ''' the threaded reader over a small file, many times, with more
+        workers than cores: every run ends, with every record, in a
+        bounded time.  The end of input was once signalled without the
+        consumer's lock, and a run could then wait forever (a lost
+        wake-up: one run in thousands on an 8-core host). '''
+    runs, nthreads = 800, (os.cpu_count() or 1) + 2
+    counts = []
+    done = threading.Event()
+
+    def scan():
+        for _ in range(runs):
+            batches = treader.batches([FNAME], ord('!'), 5,
+                                      treader.ReaderStats(),
+                                      nthreads=nthreads)
+            counts.append(sum(len(b) for b in batches))
+        done.set()
+    threading.Thread(target=scan, daemon=True).start()
+    assert done.wait(120), 'the reader hung after %d runs' % len(counts)
+    assert len(counts) == runs and len(set(counts)) == 1 and counts[0] > 0
+
+
 @pytest.mark.parametrize('sieve', ['auto', 'off'])
 def test_compressed_scan_equals_plain(compressed, sieve):
     ''' countseqs and findseqs on the CPU give equal results over the

@@ -1,6 +1,7 @@
 '''
-kvarq_tpu_torch on the card: the CUDA candidate-screen kernel against its
-plain PyTorch version, the scan step, scanner, screening matcher and
+kvarq_tpu_torch on the card: the CUDA kernels (the candidate screen K1 and
+the exact scoring S1) against their plain PyTorch versions, the scan
+step with no host round trip, scanner, screening matcher and
 ``findseqs`` on CUDA against the same code on the CPU, and the sharded
 scanner and matcher (on a mesh that repeats one card, and over every
 card) against the single-device ones.  Skipped without
@@ -203,13 +204,14 @@ def test_scan_step_cuda_matches_cpu(cuda, gather_k):
         tps.device_arrays(bank, len(seqs), cuda), 1, 10, gather_k)
     for w, g in zip(want[:3], got[:3]):
         np.testing.assert_array_equal(w.numpy(), g.cpu().numpy())
-    assert want[3] == got[3]
+    assert got[3].device.type == 'cuda' and got[3].dim() == 0
+    assert int(want[3]) == int(got[3])
 
 
 @pytest.mark.parametrize('rows', [None, 3])
 def test_tensor_scanner_cuda_matches_cpu(cuda, rows, monkeypatch):
     ''' on the card a step is the whole batch (one K1 launch per batch),
-        also when exact scoring runs in passes of ``rows`` reads '''
+        whatever the plain scoring's pass bound ``rows`` '''
     if rows:
         monkeypatch.setattr(tts, 'score_rows', lambda device, Qp: rows)
     seqs = ['CACCGGTGTAGGCAAGTCGTAACAAGG', 'TTTTTTTTTTGGGGGGGGGG', 'CCC']
@@ -230,6 +232,142 @@ def test_tensor_scanner_cuda_matches_cpu(cuda, rows, monkeypatch):
         np.testing.assert_array_equal(w, g)
     np.testing.assert_array_equal(out[0][1], out[1][1])
     np.testing.assert_array_equal(out[0][2], out[1][2])
+
+
+_STATES = {}
+
+
+def _state(cuda, bank, Lpad, nch):
+    ''' the bank state of :py:func:`_bank_seqs` (built once per shape) '''
+    key = (bank, Lpad, nch)
+    if key not in _STATES:
+        seqs = _bank_seqs(bank, nch)
+        _STATES[key] = (seqs, tps.device_arrays(
+            tts.build_bank(seqs, Lpad, 25), len(seqs), cuda))
+    return _STATES[key]
+
+
+def _score_equal(c, r, state, form, params=((2, 25), (3, 8))):
+    ''' S1 equals score_candidates_ref exactly: ``dense`` scores every row;
+        ``gathered`` the rows K1 flags, compacted, on a grid that holds
+        them all; ``overflow`` the same on a grid for a third of them.
+        The ranks past the count hold real rows, which must not be read.
+        :returns: the hit weight of the first ``(e, mo)`` '''
+    weight = None
+    for e, mo in params:
+        if form == 'dense':
+            args, kw = (), {}
+        else:
+            hit = tps.cand_counts(c, r, state, e, mo, state.nch) > 0
+            idx, count = tps.compact(hit)
+            n = int(count)
+            idx[n:] = torch.arange(len(idx) - n, dtype=torch.int32,
+                                   device=c.device)
+            grid = n + 1 if form == 'gathered' else max(1, n // 3)
+            args, kw = (idx, count), dict(grid_rows=grid)
+        before = tps.score_candidates.launches
+        got = tps.score_candidates(c, r, state, e, mo, *args, **kw)
+        torch.cuda.synchronize()
+        assert tps.score_candidates.launches == before + 1
+        want = tps.score_candidates_ref(c, r, state, e, mo, *args,
+                                        rows=4096)
+        for name, w, g in zip(('basecount', 'seqhits', 'seqbasehits'),
+                              want, got):
+            assert g.dtype == torch.int64 and g.shape == w.shape
+            np.testing.assert_array_equal(
+                g.cpu().numpy(), w.cpu().numpy(),
+                err_msg='%s e=%d mo=%d %s' % (name, e, mo, form))
+        weight = int(want[1].sum()) if weight is None else weight
+    return weight
+
+
+@pytest.mark.parametrize('form', ['dense', 'gathered', 'overflow'])
+@pytest.mark.parametrize('bank', ['one tile', 'MTBC'])
+@pytest.mark.parametrize('nch', [4, 5])
+@pytest.mark.parametrize('Lpad', [36, 64, 128, 192])
+@pytest.mark.parametrize('B', [1, 577, 16384])
+def test_score_kernel_equals_ref(cuda, B, Lpad, nch, bank, form):
+    ''' S1 at every read padding the reader makes (and 36), both channel
+        counts, a one-tile and the whole MTBC bank, one read to a
+        main-path batch, dense, gathered and overflowing its grid '''
+    seqs, state = _state(cuda, bank, Lpad, nch)
+    assert state.nch == nch
+    rng = np.random.RandomState(B + Lpad + nch)
+    codes, rl = _planted_reads(rng, seqs, B, Lpad, nch)
+    weight = _score_equal(torch.from_numpy(codes).to(cuda),
+                          torch.from_numpy(rl).to(cuda), state, form)
+    assert weight > 0 or B == 1
+
+
+@pytest.mark.parametrize('form', ['dense', 'gathered', 'overflow'])
+@pytest.mark.parametrize('nch', [4, 5])
+def test_score_kernel_on_bank_shards(cuda, nch, form):
+    ''' S1 on each shard of the MTBC bank split in two '''
+    seqs = _bank_seqs('MTBC', nch)
+    bank = parallel.ShardBank(seqs, 128, 2, 25)
+    rng = np.random.RandomState(10 + nch)
+    codes, rl = _planted_reads(rng, seqs, 577, 128, nch)
+    c, r = torch.from_numpy(codes).to(cuda), torch.from_numpy(rl).to(cuda)
+    for j in range(2):
+        assert _score_equal(c, r, bank.state(j, cuda), form) > 0
+
+
+def test_score_candidates_rejects_bad_input(cuda):
+    seqs, codes, rl, bank = case(1, 4)
+    state = tps.device_arrays(bank, len(seqs), cuda)
+    c, r = torch.from_numpy(codes).to(cuda), torch.from_numpy(rl).to(cuda)
+    idx, count = tps.compact(tps.cand_counts(c, r, state, 0, 25, 4) > 0)
+    for args in ((c.to(torch.int32), r), (c, r.long()), (c[:, :60], r),
+                 (c.t().contiguous().t(), r), (c, r.cpu()),
+                 (c, r, idx, count.cpu()), (c, r, idx.cpu(), count),
+                 (c, r, idx.long(), count)):
+        with pytest.raises(ValueError):
+            tps.score_candidates(args[0], args[1], state, 0, 25, *args[2:])
+
+
+def test_scan_step_never_waits_on_the_host(cuda):
+    ''' under sync debug mode 'error' (any host read of a device value
+        raises): dense, gathered and overflowing steps, then 8 scanner
+        steps; the flush, outside it, equals the CPU scanner '''
+    seqs, codes, rl, bank = case(42, 4, B=96, minoverlap=10)
+    state = tps.device_arrays(bank, len(seqs), cuda)
+    c, r = torch.from_numpy(codes).to(cuda), torch.from_numpy(rl).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        steps = [tps.scan_step_banked(c, r, state, 1, 10, k)
+                 for k in (0, 64, 2)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    cpu = tps.device_arrays(bank, len(seqs), 'cpu')
+    for k, got in zip((0, 64, 2), steps):
+        want = tps.scan_step_banked(torch.from_numpy(codes),
+                                    torch.from_numpy(rl), cpu, 1, 10, k)
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(w.numpy(), g.cpu().numpy())
+    assert 2 < int(steps[2][3]) <= 64
+
+    batches = [reader.RecordBatch(codes[k::8], rl[k::8], None, None)
+               for k in range(8)]
+    out = []
+    for dev in (cuda, 'cpu'):
+        sc = tts.TensorScanner(seqs, 1, 10, dev)
+        sc.gather_k, sc._gather_auto = 4, False
+        sc._context(codes.shape[1])      # the bank's upload may wait
+        if dev == cuda:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode('error')
+        try:
+            for batch in batches:
+                sc.scan_batch(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        out.append((sc.coverages(), sc.seqhits, sc.seqbasehits))
+    for w, g in zip(out[1][0], out[0][0]):
+        np.testing.assert_array_equal(w, g)
+    np.testing.assert_array_equal(out[0][1], out[1][1])
+    np.testing.assert_array_equal(out[0][2], out[1][2])
+    assert out[0][1].sum() > 0
 
 
 def _sorted(tri):

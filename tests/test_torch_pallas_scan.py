@@ -118,7 +118,8 @@ def test_scan_step_banked_matches_jax(gather_k, seed):
                              xla, pal, got):
         np.testing.assert_array_equal(np.asarray(x), g, err_msg=name)
         np.testing.assert_array_equal(np.asarray(p), g, err_msg=name)
-    assert count == int(np.asarray(pal[3]))
+    assert count.dtype == torch.int32 and count.dim() == 0
+    assert int(count) == int(np.asarray(pal[3]))
     if gather_k == 8:
         assert 0 < count <= 8          # the gathered branch ran
     if gather_k == 1:
@@ -144,13 +145,96 @@ def test_scoring_in_passes_matches_one_pass(gather_k, rows):
     assert want[1].sum() > 0
 
 
-def test_nonzero_static():
-    mask = torch.tensor([False, True, False, True, True])
-    np.testing.assert_array_equal(tps.nonzero_static(mask, 2).numpy(), [1, 3])
-    np.testing.assert_array_equal(tps.nonzero_static(mask, 5).numpy(),
-                                  np.asarray(jnp.nonzero(
-                                      jnp.asarray(mask.numpy()), size=5,
-                                      fill_value=0)[0]))
+@pytest.mark.parametrize('mask,size', [
+    ([False, True, False, True, True], 2),
+    ([False, True, False, True, True], 5),
+    ([False] * 6, 4),
+    ([True] * 6, 6),
+    ([True] * 6, 3),
+    ([], 0),
+    ('random', 40),
+    ('random', 200),
+], ids=['nonzero_static', 'nonzero_static_full', 'empty', 'full',
+        'full_overflow', 'no_entries', 'random_overflow', 'random'])
+def test_compact_matches_jnp_nonzero(mask, size):
+    ''' the device compaction equals jnp.nonzero(mask, size, fill_value=0)
+        and counts every set entry, past ``size`` too; its default size
+        is the whole mask '''
+    if mask == 'random':
+        mask = np.random.RandomState(size).rand(100) < 0.6
+    mask = np.asarray(mask, dtype=bool)
+    idx, count = tps.compact(torch.from_numpy(mask), size)
+    assert idx.dtype == count.dtype == torch.int32 and count.dim() == 0
+    want = np.asarray(jnp.nonzero(jnp.asarray(mask), size=size,
+                                  fill_value=0)[0])
+    np.testing.assert_array_equal(idx.numpy(), want)
+    assert int(count) == mask.sum()
+    full, count = tps.compact(torch.from_numpy(mask))
+    np.testing.assert_array_equal(full.numpy()[:mask.sum()],
+                                  np.flatnonzero(mask))
+    assert len(full) == len(mask) and int(count) == mask.sum()
+
+
+@pytest.mark.parametrize('gather_k,seed', [(0, 13), (8, 42), (1, 7)],
+                         ids=['dense', 'gathered', 'overflow'])
+def test_score_candidates_ref_matches_jax(gather_k, seed):
+    ''' the plain scoring of ``idx[:count]`` -- every row, or the rows
+        the screen flags compacted on the device -- equals the Pallas step
+        (interpret mode) with its compacted and full-batch branches '''
+    rng = np.random.RandomState(seed)
+    Lpad, B, e, mo = 64, 16, 1, 10
+    seqs, codes, rl, _ = _random_case(rng, nseq=4, B=B, Lpad=Lpad)
+    T = len(seqs)
+    bank = build_bank(seqs, Lpad, mo)
+    pstep = jps.scan_step(Lpad, bank, T, e, mo, B, gather_k=gather_k,
+                          interpret=True, TB=TB, TQ=TQ, with_count=True)
+    want = pstep(jnp.asarray(codes), jnp.asarray(rl),
+                 **jps.device_arrays(bank, TQ=TQ))
+
+    state = tps.device_arrays(bank, T, 'cpu')
+    c, r = torch.from_numpy(codes), torch.from_numpy(rl)
+    if gather_k:
+        hit = tps.cand_counts_ref(c, r, state, e, mo, state.nch) > 0
+        idx, count = tps.compact(hit)
+        assert int(count) == int(np.asarray(want[3]))
+        assert (int(count) > gather_k) == (gather_k == 1)
+        got = tps.score_candidates_ref(c, r, state, e, mo, idx, count)
+        via = tps.score_candidates(c, r, state, e, mo, idx, count, gather_k)
+    else:
+        got = tps.score_candidates_ref(c, r, state, e, mo)
+        via = tps.score_candidates(c, r, state, e, mo)
+    for name, w, g, v in zip(('basecount', 'seqhits', 'seqbasehits'),
+                             want, got, via):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy(), err_msg=name)
+        np.testing.assert_array_equal(g.numpy(), v.numpy(), err_msg=name)
+    assert np.asarray(want[1]).sum() > 0
+
+
+def test_score_candidates_rejects_bad_input():
+    ''' S1's wrapper checks its arguments on either device, before it
+        chooses the kernel or its plain version '''
+    seqs, codes, rl, bank = _case(1, 4)
+    state = tps.device_arrays(bank, len(seqs), 'cpu')
+    c, r = torch.from_numpy(codes), torch.from_numpy(rl)
+    idx, count = tps.compact(tps.cand_counts_ref(c, r, state, 0, 25, 4) > 0)
+    bad = [dict(codes=c.to(torch.int32)), dict(rl=r.long()),
+           dict(codes=c[:, :60]), dict(idx=idx.long(), count=count),
+           dict(idx=idx, count=count.long()),
+           dict(idx=idx, count=count.to('meta')),
+           dict(idx=idx.to('meta'), count=count),
+           dict(idx=torch.zeros(len(c) + 1, dtype=torch.int32)),
+           dict(idx=idx, count=torch.zeros(2, dtype=torch.int32)),
+           dict(count=count)]
+    for kw in bad:
+        args = dict(codes=c, rl=r, idx=None, count=None)
+        args.update(kw)
+        with pytest.raises(ValueError):
+            tps.score_candidates(args['codes'], args['rl'], state, 0, 25,
+                                 args['idx'], args['count'])
+    with pytest.raises(ValueError):
+        tps.score_candidates(c.to('meta'), r.to('meta'),
+                             tps.device_arrays(bank, len(seqs), 'meta'),
+                             0, 25)
 
 
 def test_one_hot_drops_out_of_range_codes():

@@ -13,10 +13,11 @@ import pytest
 import torch
 
 from kvarq_tpu import engine as jengine
-from kvarq_tpu.engine import hitmodel, reader
+from kvarq_tpu.engine import encode, hitmodel, reader
 from kvarq_tpu.engine import tensor_scan as jts
 from kvarq_tpu_torch import engine as tengine
 from kvarq_tpu_torch.engine import pallas_scan as tps
+from kvarq_tpu_torch.engine import reader as treader
 from kvarq_tpu_torch.engine import tensor_scan as tts
 
 from test_tensor_scan import _hitpath_basecounts, _revcomp
@@ -122,6 +123,61 @@ def test_tensor_scanner_matches_jax(mode, monkeypatch):
     assert bool(launches) == (mode != 'dense')
     if mode == 'adaptive':
         assert sc.gather_k in sc.GATHER_BUCKETS
+
+
+def _workload(seed, sizes, planted, Lpad=64):
+    ''' templates and batches of ``sizes`` random reads, the first
+        ``planted`` of each batch 40 bases of a template (a hit) '''
+    rng = np.random.RandomState(seed)
+    acgt = np.frombuffer(b'ACGT', np.uint8)
+    seqs = [bytes(rng.choice(acgt, rng.randint(60, 90))).decode()
+            for _ in range(4)]
+    out = []
+    for B in sizes:
+        raw = rng.choice(acgt, (B, Lpad))
+        for b in range(planted):
+            s = seqs[rng.randint(len(seqs))].encode()
+            start = rng.randint(0, len(s) - 40)
+            raw[b, :40] = np.frombuffer(s[start:start + 40], np.uint8)
+        rl = rng.randint(40, Lpad + 1, B).astype(np.int32)
+        rl[:planted] = 40
+        codes = encode.encode_read_array(raw)
+        codes[np.arange(Lpad)[None, :] >= rl[:, None]] = \
+            encode.CODE_READ_JUNK
+        out.append((codes, rl))
+    return seqs, out
+
+
+@pytest.mark.parametrize('workload,sizes,planted,want', [
+    ('sparse', (600, 600, 300), 12, [768, 768, 768]),
+    ('hit-dense', (1500, 1500), 1000, [1536, 1536]),
+    ('dense', (7000, 7000), 6500, [0, 0]),
+])
+def test_gather_k_trajectory_matches_jax(workload, sizes, planted, want,
+                                         monkeypatch):
+    ''' auto gather_k follows kvarq_tpu's TensorScanner (Pallas backend
+        in interpret mode) batch for batch -- the first step's peek and
+        the flush's candidate maximum -- and the totals are equal; one
+        step per batch on both '''
+    seqs, batches = _workload(len(workload), sizes, planted)
+    monkeypatch.setattr(tts, 'score_rows', lambda device, Qp: 1 << 14)
+    jsc = jts.TensorScanner(seqs, 1, 10, backend='pallas')
+    tsc = tts.TensorScanner(seqs, 1, 10, 'cpu')
+    assert jsc.gather_k == tsc.gather_k == 768
+    trajectory = []
+    for codes, rl in batches:
+        jsc.scan_batch(reader.RecordBatch(codes, rl, None, None))
+        tsc.scan_batch(treader.RecordBatch(codes, rl, None, None))
+        trajectory.append((jsc.gather_k, tsc.gather_k))
+    jsc.finalize()
+    tsc.finalize()
+    assert trajectory == [(k, k) for k in want]
+    assert jsc.gather_k == tsc.gather_k
+    for a, b in zip(jsc.coverages(), tsc.coverages()):
+        np.testing.assert_array_equal(a.astype(np.int64), b)
+    np.testing.assert_array_equal(jsc.seqhits, tsc.seqhits)
+    np.testing.assert_array_equal(jsc.seqbasehits, tsc.seqbasehits)
+    assert tsc.seqhits.sum() >= planted
 
 
 def test_score_rows_on_the_cpu():
