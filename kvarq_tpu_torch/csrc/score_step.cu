@@ -134,7 +134,7 @@ __device__ __forceinline__ void drain(
     }
 }
 
-template <int SP>
+template <int SP, bool PROF>
 __global__ void __launch_bounds__(NT, 2)
 score_step_kernel(const uint32_t* __restrict__ codes,  // [B, Lpad/4]
                   const int32_t* __restrict__ rl,       // [B]
@@ -148,8 +148,11 @@ score_step_kernel(const uint32_t* __restrict__ codes,  // [B, Lpad/4]
                   u64* __restrict__ basecount,          // [5, G]
                   u64* __restrict__ seqhits,            // [T + 1]
                   u64* __restrict__ seqbasehits,        // [T + 1]
-                  int Lpad, int Qp, int G, int maxerrors, int minoverlap)
+                  int Lpad, int Qp, int G, int maxerrors, int minoverlap,
+                  long long* __restrict__ prof)         // [PROF_N] or null
 {
+    long long pt[PROF_N] = {};
+    const long long p_start = PROF ? clock64() : 0;
     constexpr int R = Tile<SP>::R;
     constexpr int NACC = Tile<SP>::NACC;
     extern __shared__ __align__(128) uint8_t smem[];
@@ -187,11 +190,16 @@ score_step_kernel(const uint32_t* __restrict__ codes,  // [B, Lpad/4]
 
         for (int tile = 0; tile < ntiles; ++tile) {
             const int q0 = (blockIdx.x * QT + tile) * TQ;
+            long long c0 = PROF ? clock64() : 0;
             column_terms(col_dm, col_ovc, col_seql, qmeta, Qp, q0,
                          maxerrors, tid);
+            if (PROF)
+                pt[PROF_BUILD] += clock64() - c0;
             int acc[R][NACC];
-            tile_products<SP>(acc, As, Bw, codes, row_id, Lpad, bank, nb,
-                              q0, tile > 0, tid, wg);
+            tile_products<SP, PROF>(acc, As, Bw, codes, row_id, Lpad, bank,
+                                    nb, q0, tile > 0, tid, wg, pt);
+            if (PROF)
+                c0 = clock64();
 #pragma unroll
             for (int s = 0; s < R; ++s)
                 screen<R, NACC>(
@@ -200,7 +208,17 @@ score_step_kernel(const uint32_t* __restrict__ codes,  // [B, Lpad/4]
                         list[atomicAdd(&list_n, 1)] =
                             (uint16_t)(col << 7 | acc_read(warp, g, h));
                     });
+            if (PROF) {
+                const long long c1 = clock64();
+                pt[PROF_SCREEN] += c1 - c0;
+                c0 = c1;
+            }
             __syncthreads();   // the list is complete
+            if (PROF) {
+                const long long c1 = clock64();
+                pt[PROF_WAIT] += c1 - c0;
+                c0 = c1;
+            }
             const int nl = list_n;
             if (nl > 0)
                 drain<SP>(list, nl, row_id, row_rl,
@@ -208,12 +226,24 @@ score_step_kernel(const uint32_t* __restrict__ codes,  // [B, Lpad/4]
                           qmeta, tseg, basecount, seqhits, seqbasehits,
                           Lpad, Qp, G, q0, maxerrors, minoverlap, warp,
                           lane);
+            if (PROF) {
+                const long long c1 = clock64();
+                pt[PROF_DRAIN] += c1 - c0;
+                c0 = c1;
+            }
             // the list, the column and the row terms are read before
             // they change
             __syncthreads();
+            if (PROF)
+                pt[PROF_WAIT] += clock64() - c0;
             if (tid == 0)
                 list_n = 0;
         }
+    }
+    if (PROF && (tid & 127) == 0) {
+        pt[PROF_TOTAL] = clock64() - p_start;
+        for (int i = 0; i < PROF_N; ++i)
+            atomicAdd(reinterpret_cast<u64*>(prof) + i, (u64)pt[i]);
     }
 }
 
@@ -230,13 +260,16 @@ const char* kvq_cuda_src_hash() { return KVQ_SRC_HASH; }
 // for (blocks loop over the rest); bank: uint8 [4 * nbw] padded bank
 // bytes (pallas_scan._kernel_bytes); qmeta: int32 [8, Qp]; tseg: int32
 // [Qp]; basecount int64 [5, G], seqhits and seqbasehits int64 [T + 1],
-// added to.  Returns the CUDA error code of the launch (0 on success).
+// added to; prof: int64 [8] or null, each warpgroup's clock64() cycles
+// per phase added to it (PROF_* of kvq_onehot_mma.h).  Returns the CUDA
+// error code of the launch (0 on success).
 int kvq_score_step(const void* codes, const void* rl, const void* rows,
                    const void* count, int cap, int grid_rows,
                    const void* bank, int nbw, const void* qmeta,
                    const void* tseg, void* basecount, void* seqhits,
                    void* seqbasehits, int Lpad, int Qp, int G, int nch,
-                   int maxerrors, int minoverlap, void* stream)
+                   int maxerrors, int minoverlap, void* prof,
+                   void* stream)
 {
     if (cap <= 0 || grid_rows <= 0 || Qp <= 0)
         return 0;
@@ -247,7 +280,9 @@ int kvq_score_step(const void* codes, const void* rl, const void* rows,
     const dim3 grid((ntiles + QT - 1) / QT,
                     tiles_y < 65535 ? tiles_y : 65535);
     // above the 48 KB default: set for the current device at every launch
-    auto kernel = nch == 4 ? score_step_kernel<4> : score_step_kernel<8>;
+    auto kernel = nch == 4
+        ? (prof ? score_step_kernel<4, true> : score_step_kernel<4, false>)
+        : (prof ? score_step_kernel<8, true> : score_step_kernel<8, false>);
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err != cudaSuccess)
@@ -257,7 +292,7 @@ int kvq_score_step(const void* codes, const void* rl, const void* rows,
         (const int32_t*)count, cap, (const uint8_t*)bank, 4L * nbw,
         (const int32_t*)qmeta, (const int32_t*)tseg, (u64*)basecount,
         (u64*)seqhits, (u64*)seqbasehits, Lpad, Qp, G, maxerrors,
-        minoverlap);
+        minoverlap, (long long*)prof);
     return (int)cudaGetLastError();
 }
 

@@ -372,7 +372,7 @@ def _score_lib():
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, i, i, vp, i, vp, vp, vp, vp, vp,
-                       i, i, i, i, i, i, vp]
+                       i, i, i, i, i, i, vp, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -404,7 +404,7 @@ def _check_score_args(codes, rl, state, idx, count):
 
 
 def score_candidates(codes, rl, state, maxerrors, minoverlap, idx=None,
-                     count=None, grid_rows=None, rows=None):
+                     count=None, grid_rows=None, rows=None, profile=None):
     '''
     exact scoring of rows of one batch: ``(basecount [5, G], seqhits
     [T+1], seqbasehits [T+1])``, int64 -- kvarq_tpu's ``score_full`` over
@@ -418,6 +418,9 @@ def score_candidates(codes, rl, state, maxerrors, minoverlap, idx=None,
     :param grid_rows: the rows the kernel's grid is sized for (blocks loop
         over the rest, so any count is scored in full); None: all
     :param rows: reads per pass of the plain version
+    :param profile: int64 ``[8]`` tensor on the card, or None: the
+        kernel adds each warpgroup's clock cycles per phase to it
+        (:py:data:`PROFILE_PHASES`)
 
     On a CPU tensor this is :py:func:`score_candidates_ref`.  On a CUDA
     tensor it launches csrc/score_step.cu (S1) on the current stream, or
@@ -435,6 +438,13 @@ def score_candidates(codes, rl, state, maxerrors, minoverlap, idx=None,
     if Lpad % 4 or codes.data_ptr() % 4 or state.bank.numel() % 4:
         raise ValueError('score_candidates: Lpad, the codes pointer and the '
                          'bank length must be multiples of 4')
+    if profile is not None and (
+            profile.device != codes.device or profile.dtype != torch.int64
+            or tuple(profile.shape) != (len(PROFILE_PHASES),)
+            or not profile.is_contiguous()):
+        raise ValueError('score_candidates: profile must be a contiguous '
+                         'int64 tensor of shape (%d,) on %s'
+                         % (len(PROFILE_PHASES), codes.device))
     G, T = state.G, state.T
     bc = torch.zeros(encode.NBASE * G, dtype=torch.int64, device=codes.device)
     sh = torch.zeros(T + 1, dtype=torch.int64, device=codes.device)
@@ -452,6 +462,7 @@ def score_candidates(codes, rl, state, maxerrors, minoverlap, idx=None,
             state.qmeta.data_ptr(), state.tseg.data_ptr(), bc.data_ptr(),
             sh.data_ptr(), sbh.data_ptr(), Lpad, state.Qp, G, state.nch,
             maxerrors, minoverlap,
+            None if profile is None else profile.data_ptr(),
             torch.cuda.current_stream(codes.device).cuda_stream)
     if err:
         raise RuntimeError('score_step kernel launch failed: CUDA error %d'
@@ -461,6 +472,11 @@ def score_candidates(codes, rl, state, maxerrors, minoverlap, idx=None,
 
 
 score_candidates.launches = 0
+
+# the entries of score_candidates' profile buffer (PROF_* of
+# csrc/kvq_onehot_mma.h), clock64() cycles summed over warpgroups
+PROFILE_PHASES = ('build', 'mma', 'screen', 'drain', 'wait', 'total',
+                  'stage', 'stage_wait')
 
 
 def compact(mask, size=None):
