@@ -240,18 +240,13 @@ __device__ __forceinline__ void build_b(
 // column tile when the depth is one slab and keep_a is set.  Every thread
 // of the block calls it; it ends with no MMA in flight and the block
 // synchronised, and it synchronises the block after the builds (so
-// shared terms written before the call are visible after it).  With PROF,
-// clock64() cycles are added to t[PROF_BUILD], t[PROF_MMA] and
-// t[PROF_WAIT].
-constexpr int PROF_BUILD = 0, PROF_MMA = 1, PROF_SCREEN = 2, PROF_DRAIN = 3,
-              PROF_WAIT = 4, PROF_TOTAL = 5, PROF_N = 8;
-
-template <int SP, bool PROF = false>
+// shared terms written before the call are visible after it).
+template <int SP>
 __device__ __forceinline__ void tile_products(
     int (&acc)[Tile<SP>::R][Tile<SP>::NACC], uint8_t* As, uint32_t* Bw,
     const uint32_t* __restrict__ codes, const int* row_id, int Lpad,
     const uint8_t* __restrict__ bank, long nb, int q0, bool keep_a,
-    int tid, int wg, long long* t = nullptr)
+    int tid, int wg)
 {
     constexpr int R = Tile<SP>::R;
     constexpr int NACC = Tile<SP>::NACC;
@@ -267,22 +262,11 @@ __device__ __forceinline__ void tile_products(
     for (int slab = 0; slab < nslabs; ++slab) {
         const int d0 = slab * SLAB;
         const int ksteps = (min(SLAB, depth - d0) + 31) / 32;
-        long long c0 = PROF ? clock64() : 0;
         if (!keep_a || nslabs > 1)
             build_a<SP>(As, codes, row_id, Lpad, d0, 2 * ksteps, tid);
         build_b<SP>(Bw, bank, nb, (long)q0 + d0 / SP, tid);
         fence_proxy_async();
-        if (PROF) {
-            const long long c1 = clock64();
-            t[PROF_BUILD] += c1 - c0;
-            c0 = c1;
-        }
         __syncthreads();
-        if (PROF) {
-            const long long c1 = clock64();
-            t[PROF_WAIT] += c1 - c0;
-            c0 = c1;
-        }
 
 #pragma unroll
         for (int s = 0; s < R; ++s)
@@ -306,14 +290,7 @@ __device__ __forceinline__ void tile_products(
 #pragma unroll
         for (int s = 0; s < R; ++s)
             fence_acc(acc[s]);
-        if (PROF) {
-            const long long c1 = clock64();
-            t[PROF_MMA] += c1 - c0;
-            c0 = c1;
-        }
         __syncthreads();   // the tiles are read before they change
-        if (PROF)
-            t[PROF_WAIT] += clock64() - c0;
     }
 }
 

@@ -25,25 +25,44 @@
 // What bounds it: the product, 2 * rows * Lpad * nch * Qp operations
 // (6.7e11 for a dense 16,384-read MTBC batch at Lpad 128, nch 4: 0.34 ms
 // at the card's 1,979 TOP/s int8 rate), against a few MB of inputs and
-// the pairs * Lpad coverage atomics.
+// the pairs * Lpad coverage adds.
 //
-// Design.  The product is K1's (kvq_onehot_mma.h: wgmma s8 -> s32 on the
-// one-hot read tile and the shifted bank windows, two blocks of 128 reads
-// per SM, slabs above 512 depth bytes).  K1's screen is sound per (read,
-// column) pair: a pair with w > 0 passes it.  So the epilogue screens the
-// accumulators in their fragment layout as K1 does and pushes each passing
-// pair (block row, tile column; 2 bytes) into a list in shared memory with
-// room for every pair of the tile, and the block then drains the list, one
-// warp per pair: the match count again from the raw codes (one position
-// per lane, a shuffle sum; Lpad compares, against the tile's Lpad * 128
-// MMA columns), mode_weights, and the Lpad-long coverage loop.  Passing
-// pairs are sparse (a read hits one or two templates at one or two
-// shifts), so the registers hold no more than K1's.
+// Design: one persistent block per SM walks a static schedule of stages.
+// A stage is 128 reads (a row tile) times 128 shift columns of one
+// residue s of a column group: the group's GC = 512 columns are R = 16 /
+// SP residues of spans of 128 R columns, and stage k scores columns q0 +
+// (k / R) 128 R + k % R + R c, c < 128 (SP: depth bytes per read
+// position, 4 for nch 4, 8 for nch 5).  The stages of every row tile
+// below the count, row tile outermost, are cut into gridDim.x equal
+// ranges, so the grid does not depend on the count and a block rebuilds
+// its reads' one-hot tile only when the row tile changes.
 //
-// Rows: a block takes row tiles blockIdx.y, blockIdx.y + gridDim.y, ...
-// while the tile starts below the count, so a grid sized for gather_k rows
-// scores every candidate of a step that overflows it, and the host never
-// reads the count.
+// - A producer warpgroup (one warp, 40 registers after setmaxnreg)
+//   stages each column group into a ring of two slots with bulk copies
+//   (cp.async.bulk) completed on an mbarrier: the R residue windows of
+//   the precomputed one-hot bank (pallas_scan.s1_onehot: copy s is moved
+//   by s positions, so every window starts on a 16-byte boundary) and the
+//   group's screen terms in stage order (pallas_scan.s1_terms).  One set
+//   of windows serves the group's four stages: the descriptor start
+//   moves by 16 * 128 bytes per span.
+// - Two consumer warpgroups (232 registers) each own 64 reads of the row
+//   tile: they build their rows' one-hot tile (kvq_onehot_mma.h's A
+//   layout) in shared memory, and per stage issue the MMAs (wgmma
+//   m64n128k32 s8 -> s32, A and the residue window in shared memory) of
+//   stage i + 1 into the second of two accumulator sets before they
+//   screen and drain stage i: the screen and the drain run while the
+//   tensor cores work.  The screen compares the count plus e with terms
+//   that do not depend on e.
+// - The screen pushes each passing (read, column) pair into its
+//   warpgroup's list in shared memory (room for every pair of a stage);
+//   the drain takes a pair per warp: the match count again from the
+//   codes, mode_weights, seqhits and seqbasehits summed over a warp's run
+//   of pairs of one template before the atomic, and the coverage fold
+//   into a u32 histogram of the stage's bank positions in shared memory,
+//   flushed into basecount with one int64 atomic per non-zero entry of
+//   the positions the pairs touched (deep loci take one atomic per
+//   position, not one per read).  Depths above the A tile's room (1,024
+//   bytes) rebuild it per chunk and stage, with nothing in flight.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (kvarq_tpu_torch/engine/native_cuda.py).
@@ -60,13 +79,145 @@ using namespace kvq;
 
 typedef unsigned long long u64;
 
-// the passing pairs of one column tile, (tile column << 7 | block row):
-// room for every pair of the tile
-constexpr int LIST_CAP = TB * TQ;
-constexpr int SMEM = MMA_SMEM + 2 * LIST_CAP;
-constexpr int NWARPS = NT / 32;
+constexpr int GC = 512;          // shift columns per column group
+constexpr int NSTAGE = 4;        // stages per group, 128 columns each
+constexpr int NSLOT = 2;         // column groups staged at a time
+constexpr int NCW = 2;           // consumer warpgroups, 64 reads each
+constexpr int NTHREADS = 128 * (NCW + 1);  // and the producer warpgroup
+constexpr int NACC = 64;         // accumulators per thread: m64 n128
+constexpr int LIST_CAP = 64 * 128;         // pairs of a warpgroup's stage
+constexpr int TERM_BYTES = NSTAGE * 128 * 16;   // a group's screen terms
+constexpr int SMEM_MAX = 227 * 1024;
+constexpr int INT_BIG = 0x7FFFFFFF;
 
-static_assert(TB == 128 && TQ == 128, "list entries hold 7-bit indices");
+// the profile buffer's entries (pallas_scan.PROFILE_PHASES): consumer
+// warpgroups' cycles building A and the row terms, issuing and waiting
+// on MMAs, screening, draining, waiting on barriers, in all; the
+// producer's cycles staging and waiting for a free slot
+constexpr int PROF_BUILD = 0, PROF_MMA = 1, PROF_SCREEN = 2, PROF_DRAIN = 3,
+              PROF_WAIT = 4, PROF_TOTAL = 5, PROF_STAGE = 6,
+              PROF_STAGE_WAIT = 7, PROF_N = 8;
+
+static_assert(TB == 128 && TQ == 128, "list entries hold 6 + 7 bits");
+
+// the dynamic shared memory of one launch: the A tile (akc K columns of
+// 16 bytes), NSLOT slots (R windows of win bytes, the terms), NCW pair
+// lists and NCW coverage histograms of 5 x hp positions (hp 0: none)
+struct Layout {
+    int dp;         // depth bytes the MMAs read (whole k32 steps)
+    int win;        // bytes of one residue window of a group
+    int akc;        // K columns of A in shared memory
+    int nchunks;    // A tiles per row tile
+    int hp;         // positions per histogram channel, 0: no histogram
+    int slot_off, slot_bytes, list_off, hist_off, bytes;
+};
+
+Layout make_layout(int SP, int Lpad)
+{
+    Layout L = {};
+    const int R = 16 / SP;
+    L.dp = (SP * Lpad + 31) / 32 * 32;
+    L.win = SP * GC + L.dp;
+    L.slot_bytes = R * L.win + TERM_BYTES;
+    const int kcols = L.dp / 16;
+    for (int amax = 64; amax >= 16; amax /= 2) {
+        for (int hist = 1; hist >= 0; --hist) {
+            L.akc = kcols < amax ? kcols : amax;
+            L.nchunks = (kcols + L.akc - 1) / L.akc;
+            L.hp = hist ? (128 * R + Lpad + 3) / 4 * 4 : 0;
+            L.slot_off = (L.akc * KSTRIDE + 127) / 128 * 128;
+            L.list_off = L.slot_off + NSLOT * L.slot_bytes;
+            L.hist_off = L.list_off + NCW * LIST_CAP * 2;
+            L.bytes = L.hist_off + NCW * 5 * L.hp * 4;
+            if (L.bytes <= SMEM_MAX)
+                return L;
+        }
+    }
+    L.bytes = 0;
+    return L;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p)
+{
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count)
+{
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar)
+{
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                 :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes)
+{
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// wait until the barrier's phase is not ``parity``
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity)
+{
+    uint32_t done;
+    do {
+        asm volatile(
+            "{\n"
+            ".reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n"
+            "}\n"
+            : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    } while (!__all_sync(0xFFFFFFFFu, done));   // the warp leaves together
+}
+
+// bytes from device memory into shared memory, completed on ``bar``
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar)
+{
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n"
+        :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+        : "memory");
+}
+
+// the 128 threads of consumer warpgroup wg
+__device__ __forceinline__ void wg_sync(int wg)
+{
+    asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+}
+
+// d = A (64 x 32) * B (32 x 128) + (acc ? d : 0), both K-major in shared
+// memory, s8 -> s32
+__device__ __forceinline__ void wgmma_n128(int (&d)[64], uint64_t da,
+                                           uint64_t db, int acc)
+{
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n"
+        "}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(da), "l"(db), "r"(acc));
+}
 
 // hit-mode weight (0/1/2) and overlap ov of a read of length rl with m
 // matching bases at a column (d, seql, valid): tensor_scan.mode_weights
@@ -85,165 +236,508 @@ __device__ __forceinline__ int mode_weight(int m, int rl, int d, int seql,
     return passing ? wA + wB + full : 0;
 }
 
-// score the listed pairs of the column tile at q0, one warp per pair
-template <int SP>
-__device__ __forceinline__ void drain(
-    const uint16_t* list, int nl, const int* row_id, const int* row_rl,
-    const uint8_t* __restrict__ codes, const uint8_t* __restrict__ bank,
-    long nb, const int32_t* __restrict__ qmeta,
-    const int32_t* __restrict__ tseg, u64* basecount, u64* seqhits,
-    u64* seqbasehits, int Lpad, int Qp, int G, int q0, int maxerrors,
-    int minoverlap, int warp, int lane)
-{
-    constexpr uint32_t NCH = SP == 4 ? 4u : 5u;
-    for (int k = warp; k < nl; k += NWARPS) {
-        const int ent = list[k];
-        const int r = ent & 127, q = q0 + (ent >> 7);
-        const int row = row_id[r];
-        if (row < 0)
-            continue;     // an empty row passes where seql <= maxerrors
-        const uint8_t* read = codes + (size_t)row * Lpad;
-        // the match count, one read position per lane
-        int m = 0;
-        for (int j = lane; j < Lpad; j += 32) {
-            const uint32_t c = read[j];
-            m += c < NCH && c == bank_byte(bank, nb, (long)q + j) ? 1 : 0;
+struct Args {
+    const uint32_t* codes;     // [B, Lpad/4]
+    const int32_t* rl;         // [B]
+    const int32_t* rows;       // [cap] or null
+    const int32_t* count;      // [1] or null
+    int cap;
+    const uint8_t* bank;       // [nb]
+    long nb;
+    const uint8_t* onehot;     // [R, onb]
+    long onb;
+    const int4* sterms;        // [groups * NSTAGE * 128]
+    const int32_t* qmeta;      // [8, Qp]
+    const int32_t* tseg;       // [Qp]
+    u64* basecount;            // [5, G]
+    u64* seqhits;              // [T + 1]
+    u64* seqbasehits;          // [T + 1]
+    int Lpad, Qp, G, maxerrors, minoverlap;
+    long long* prof;           // [PROF_N] or null
+};
+
+// the block's shared state besides the dynamic buffers
+struct Shared {
+    uint64_t full[NSLOT], empty[NSLOT];
+    int row_id[2][TB], row_rl[2][TB], row_rlmo[2][TB];
+    // per consumer warpgroup and stage modulo 3: the list's length and
+    // the first and last column of the pairs with a weight
+    int list_n[NCW][3], lo[NCW][3], hi[NCW][3];
+};
+
+// a consumer warpgroup's walk over the block's stages [s0, s1)
+template <int SP, bool PROF>
+struct Consumer {
+    static constexpr int R = 16 / SP;
+    static constexpr int SPAN = 128 * R;
+
+    const Args& a;
+    const Layout& lay;
+    Shared& sh;
+    uint8_t* As;
+    const uint8_t* slots;
+    uint16_t* list;
+    uint32_t* hist;
+    long s0, s1, per_rt;
+    int ngroups, n, wg, wtid, warp, lane, g8, t;
+
+    int slot = 0, phase = 0;
+    // the row tile of the row terms in shared memory, and of A where the
+    // depth is one chunk (-1: none)
+    long rows_rt = -1, a_rt = -1;
+    int pslot = 0;               // the slot of the stage last issued
+    long long pt[PROF_N] = {};
+
+    __device__ __forceinline__ Consumer(const Args& a_, const Layout& l_,
+                                        Shared& sh_, uint8_t* smem, long s0_,
+                                        long s1_, int n_, int ngroups_)
+        : a(a_), lay(l_), sh(sh_), As(smem), slots(smem + l_.slot_off),
+          s0(s0_), s1(s1_), per_rt((long)ngroups_ * NSTAGE),
+          ngroups(ngroups_), n(n_)
+    {
+        const int tid = threadIdx.x;
+        wg = tid >> 7;
+        wtid = tid & 127;
+        warp = tid >> 5;
+        lane = tid & 31;
+        g8 = lane >> 2;
+        t = lane & 3;
+        list = reinterpret_cast<uint16_t*>(smem + lay.list_off) + wg * LIST_CAP;
+        hist = reinterpret_cast<uint32_t*>(smem + lay.hist_off)
+            + wg * 5 * lay.hp;
+    }
+
+    __device__ __forceinline__ long long clk() const
+    {
+        return PROF ? clock64() : 0;
+    }
+
+    // the row terms of row tile rt (rows_too: when it changes; two sets,
+    // rt % 2, so that the previous row tile's stage can still be finished)
+    // and this warpgroup's rows of the A tile for depth chunk ch
+    __device__ __forceinline__ void rebuild(long rt, int ch, bool rows_too)
+    {
+        const long long c0 = clk();
+        const int r0 = 64 * wg, set = (int)(rt & 1);
+        if (rows_too) {
+            if (wtid < 64) {
+                const int r = r0 + wtid;
+                const long b = rt * TB + r;
+                const int row = b < n ? (a.rows ? a.rows[b] : (int)b) : -1;
+                const int v = row >= 0 ? a.rl[row] : 0;
+                sh.row_id[set][r] = row;
+                sh.row_rl[set][r] = v;
+                sh.row_rlmo[set][r] = v > 0 ? min(v, a.minoverlap)
+                                            : BIG_RL_THRESHOLD;
+            }
+            wg_sync(wg);
         }
+        // K column v (depth bytes d0 + 16 v ..) of block row r at
+        // v * KSTRIDE + 16 r: the layout of kvq_onehot_mma.h build_a; the
+        // code words of U entries are loaded before they are expanded
+        constexpr int U = 8;
+        const int lw = a.Lpad / 4;
+        const int d0 = ch * lay.akc * 16;
+        const int kcols = min(lay.akc, lay.dp / 16 - ch * lay.akc);
+        for (int i0 = wtid; i0 < 64 * kcols; i0 += 128 * U) {
+            uint32_t w[U];
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-            m += __shfl_xor_sync(0xFFFFFFFFu, m, o);
-        int ov;
-        const int w = mode_weight(
-            m, row_rl[r], qmeta[ROW_D * Qp + q], qmeta[ROW_SEQL * Qp + q],
-            qmeta[ROW_VALID * Qp + q], maxerrors, minoverlap, ov);
-        if (w == 0)
-            continue;
-        if (lane == 0) {
-            const int seg = tseg[q];
-            atomicAdd(seqhits + seg, (u64)w);
-            atomicAdd(seqbasehits + seg, (u64)(long long)(w * ov));
+            for (int u = 0; u < U; ++u) {
+                const int idx = i0 + 128 * u;
+                const int r = r0 + idx / kcols, v = idx % kcols;
+                const int p = (d0 + 16 * v) / SP;
+                const int row = idx < 64 * kcols ? sh.row_id[set][r] : -1;
+                w[u] = row >= 0 && p < a.Lpad
+                    ? __ldg(a.codes + (size_t)row * lw + p / 4) : ~0u;
+            }
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                const int idx = i0 + 128 * u;
+                if (idx >= 64 * kcols)
+                    break;
+                const int r = r0 + idx / kcols, v = idx % kcols;
+                const int p = (d0 + 16 * v) / SP;
+                // ~0: four junk codes, which one-hot to zero
+                uint4 x;
+                if (SP == 4) {
+                    x.x = onehot4(w[u] & 0xFFu);
+                    x.y = onehot4((w[u] >> 8) & 0xFFu);
+                    x.z = onehot4((w[u] >> 16) & 0xFFu);
+                    x.w = onehot4(w[u] >> 24);
+                } else {
+                    const uint32_t c0_ = (w[u] >> (8 * (p % 4))) & 0xFFu;
+                    const uint32_t c1_ = (w[u] >> (8 * (p % 4) + 8)) & 0xFFu;
+                    x = make_uint4(onehot4(c0_), c0_ == 4u ? 1u : 0u,
+                                   onehot4(c1_), c1_ == 4u ? 1u : 0u);
+                }
+                *reinterpret_cast<uint4*>(As + v * KSTRIDE + 16 * r) = x;
+            }
         }
-        // the diagonal fold: read position j lies on bank position
-        // q - (Lpad-1) + j
-        for (int j = lane; j < Lpad; j += 32) {
-            const uint32_t c = read[j];
-            const int gp = q - (Lpad - 1) + j;
-            if (c < 5u && gp >= 0 && gp < G)
-                atomicAdd(basecount + (size_t)c * G + gp, (u64)w);
+        fence_proxy_async();
+        wg_sync(wg);
+        if (PROF)
+            pt[PROF_BUILD] += clk() - c0;
+    }
+
+    // the pairs of stage L (its accumulators acc, its group in slot sl):
+    // screen, drain, and the slot's release after the group's last stage
+    __device__ __forceinline__ void finish(const int (&acc)[NACC], long L,
+                                           int sl)
+    {
+        long long c0 = clk();
+        const int k = (int)(L % NSTAGE), p = k / R, s = k % R;
+        const int q0 = (int)((L / NSTAGE) % ngroups) * GC + p * SPAN;
+        const int4* terms = reinterpret_cast<const int4*>(
+            slots + sl * lay.slot_bytes + R * lay.win) + k * 128;
+        const int i3 = (int)((L - s0) % 3);
+        const int set = (int)((L / per_rt) & 1);
+        int rlv[2], rlmo[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            rlv[h] = sh.row_rl[set][acc_read(warp, g8, h)];
+            rlmo[h] = sh.row_rlmo[set][acc_read(warp, g8, h)];
+        }
+        // the screen without branches, then the pushes in the warps that
+        // have a passing pair (few: a read hits a template or two); the
+        // count plus e against terms that do not depend on e
+        const int e_ = a.maxerrors;
+        int npass = 0;
+#pragma unroll
+        for (int j = 0; j < NACC / 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int4 tm = terms[8 * j + 2 * t + e];
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                    npass += acc[4 * j + 2 * h + e] + e_
+                        >= max(min(rlv[h] + tm.x, tm.y), min(rlmo[h], tm.z));
+            }
+        if (__any_sync(0xFFFFFFFFu, npass > 0)) {
+            const int rbase = 16 * (warp & 3) + g8;
+#pragma unroll
+            for (int j = 0; j < NACC / 4; ++j)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int c = 8 * j + 2 * t + e;
+                    const int4 tm = terms[c];
+#pragma unroll
+                    for (int h = 0; h < 2; ++h)
+                        if (acc[4 * j + 2 * h + e] + e_
+                                >= max(min(rlv[h] + tm.x, tm.y),
+                                       min(rlmo[h], tm.z)))
+                            list[atomicAdd(&sh.list_n[wg][i3], 1)] =
+                                (uint16_t)(c << 6 | (rbase + 8 * h));
+                }
+        }
+        long long c1 = clk();
+        if (PROF) {
+            pt[PROF_SCREEN] += c1 - c0;
+            c0 = c1;
+        }
+        wg_sync(wg);     // the list is complete; the terms are read
+        // warp-uniform, as the compiler can see
+        const int nl = __shfl_sync(0xFFFFFFFFu, sh.list_n[wg][i3], 0);
+        if (wtid == 0) {
+            const int i = (i3 + 2) % 3;    // stage L + 2's entries
+            sh.list_n[wg][i] = 0;
+            sh.lo[wg][i] = INT_BIG;
+            sh.hi[wg][i] = -1;
+            if (k == NSTAGE - 1 || L == s1 - 1)
+                mbar_arrive(&sh.empty[sl]);
+        }
+        if (PROF) {
+            c1 = clk();
+            pt[PROF_WAIT] += c1 - c0;
+            c0 = c1;
+        }
+        if (nl == 0)
+            return;
+        drain(nl, q0 + s, q0 - (a.Lpad - 1), i3, set);
+        if (PROF) {
+            c1 = clk();
+            pt[PROF_DRAIN] += c1 - c0;
+            c0 = c1;
+        }
+        wg_sync(wg);     // the list is read, the histogram complete
+        if (PROF) {
+            c1 = clk();
+            pt[PROF_WAIT] += c1 - c0;
+            c0 = c1;
+        }
+        if (lay.hp)
+            flush(q0 - (a.Lpad - 1), i3);
+        if (PROF)
+            pt[PROF_DRAIN] += clk() - c0;
+    }
+
+    // the listed pairs, one warp per pair; MMA column c is column qs + R c
+    // and its coverage lands on histogram entry g - hbase
+    __device__ __forceinline__ void drain(int nl, int qs, int hbase, int i3,
+                                          int set)
+    {
+        constexpr uint32_t NCH = SP == 4 ? 4u : 5u;
+        const uint8_t* codes = reinterpret_cast<const uint8_t*>(a.codes);
+        const int Lpad = a.Lpad, Qp = a.Qp, G = a.G;
+        int run_seg = -1;
+        u64 run_w = 0, run_b = 0;
+        for (int x = warp & 3; x < nl; x += 4) {
+            const int ent = list[x];
+            const int r = 64 * wg + (ent & 63);
+            const int q = qs + R * (ent >> 6);
+            const int row = sh.row_id[set][r];
+            if (row < 0)
+                continue;    // an empty row passes where seql <= e
+            const uint8_t* read = codes + (size_t)row * Lpad;
+            int m = 0;
+            for (int j = lane; j < Lpad; j += 32) {
+                const uint32_t c = read[j];
+                m += c < NCH && c == bank_byte(a.bank, a.nb, (long)q + j);
+            }
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1)
+                m += __shfl_xor_sync(0xFFFFFFFFu, m, o);
+            int ov;
+            const int w = mode_weight(
+                m, sh.row_rl[set][r], a.qmeta[ROW_D * Qp + q],
+                a.qmeta[ROW_SEQL * Qp + q], a.qmeta[ROW_VALID * Qp + q],
+                a.maxerrors, a.minoverlap, ov);
+            if (w == 0)
+                continue;
+            if (lane == 0) {
+                const int seg = a.tseg[q];
+                if (seg != run_seg) {
+                    if (run_seg >= 0) {
+                        atomicAdd(a.seqhits + run_seg, run_w);
+                        atomicAdd(a.seqbasehits + run_seg, run_b);
+                    }
+                    run_seg = seg;
+                    run_w = run_b = 0;
+                }
+                run_w += (u64)w;
+                run_b += (u64)(long long)(w * ov);
+                if (lay.hp) {
+                    atomicMin(&sh.lo[wg][i3], q);
+                    atomicMax(&sh.hi[wg][i3], q);
+                }
+            }
+            // the diagonal fold: read position j lies on bank position
+            // q - (Lpad-1) + j
+            for (int j = lane; j < Lpad; j += 32) {
+                const uint32_t c = read[j];
+                const int gp = q - (Lpad - 1) + j;
+                if (c < 5u && gp >= 0 && gp < G) {
+                    if (lay.hp)
+                        atomicAdd(hist + c * lay.hp + (gp - hbase),
+                                  (uint32_t)w);
+                    else
+                        atomicAdd(a.basecount + (size_t)c * G + gp, (u64)w);
+                }
+            }
+        }
+        if (lane == 0 && run_seg >= 0) {
+            atomicAdd(a.seqhits + run_seg, run_w);
+            atomicAdd(a.seqbasehits + run_seg, run_b);
         }
     }
-}
+
+    // the histogram's entries of the positions the stage's pairs touched
+    // into basecount, one atomic each, and back to zero
+    __device__ __forceinline__ void flush(int hbase, int i3)
+    {
+        const int hi = sh.hi[wg][i3];
+        if (hi < 0)
+            return;
+        const int g0 = max(0, sh.lo[wg][i3] - (a.Lpad - 1));
+        const int len = min(a.G - 1, hi) - g0 + 1;
+        for (int idx = wtid; idx < 5 * len; idx += 128) {
+            const int c = idx / len, gp = g0 + idx % len;
+            uint32_t* cell = hist + c * lay.hp + (gp - hbase);
+            const uint32_t v = *cell;
+            if (v) {
+                *cell = 0;
+                atomicAdd(a.basecount + (size_t)c * a.G + gp, (u64)v);
+            }
+        }
+    }
+
+    // the MMAs of depth chunk ch of a stage into cur (from zero when ch is
+    // 0: nothing but the MMAs defines an accumulator while the other set's
+    // MMAs run, or ptxas serialises them, C7515), and their commit
+    __device__ __forceinline__ void mma(int (&cur)[NACC], const uint8_t* win,
+                                        int ch)
+    {
+        const long long c0 = clk();
+        const int ks0 = ch * lay.akc / 2;
+        const int nks = min(lay.akc, lay.dp / 16 - ch * lay.akc) / 2;
+        fence_acc(cur);
+        wgmma_fence();
+        for (int ks = 0; ks < nks; ++ks) {
+            const uint64_t da = make_desc(
+                As + 2 * ks * KSTRIDE + wg * 64 * 16, KSTRIDE, 128);
+            const uint64_t db = make_desc(win + 32 * (ks0 + ks), 16, 128);
+            wgmma_n128(cur, da, db, ch > 0 || ks > 0);
+        }
+        wgmma_commit();
+        if (PROF)
+            pt[PROF_MMA] += clk() - c0;
+    }
+
+    // stage L into cur, after waiting for its group; then the previous
+    // stage, in prv, is finished while cur's MMAs run, and the step ends
+    // with nothing in flight.  No MMA group outlives its step and every
+    // branch is warp-uniform: ptxas serialises the MMAs otherwise (C7514,
+    // C7520).  Where A changes (a new row tile; every stage when the depth
+    // takes chunks) it is rebuilt first, the previous stage keeping its
+    // row terms (the other set) for its finish.
+    __device__ __forceinline__ void step(int (&cur)[NACC], int (&prv)[NACC],
+                                         long L)
+    {
+        const bool first = L == s0;
+        const long rt = L / per_rt;
+        const int k = (int)(L % NSTAGE);
+        if (first || k == 0) {
+            if (!first && ++slot == NSLOT) {
+                slot = 0;
+                phase ^= 1;
+            }
+            const long long c0 = clk();
+            mbar_wait(&sh.full[slot], phase);
+            if (PROF)
+                pt[PROF_WAIT] += clk() - c0;
+        }
+        const uint8_t* win = slots + slot * lay.slot_bytes
+            + (k % R) * lay.win + SP * SPAN * (k / R);
+        if (lay.nchunks > 1 || rt != a_rt) {
+            for (int ch = 0; ch < lay.nchunks; ++ch) {
+                if (ch > 0) {
+                    const long long c1 = clk();
+                    wgmma_wait<0>();
+                    fence_acc(cur);
+                    if (PROF)
+                        pt[PROF_MMA] += clk() - c1;
+                }
+                rebuild(rt, ch, ch == 0 && rt != rows_rt);
+                mma(cur, win, ch);
+            }
+            rows_rt = a_rt = rt;
+        } else {
+            mma(cur, win, 0);
+        }
+        if (!first)
+            finish(prv, L - 1, pslot);
+        const long long c0 = clk();
+        wgmma_wait<0>();
+        fence_acc(cur);
+        if (PROF)
+            pt[PROF_MMA] += clk() - c0;
+        pslot = slot;
+    }
+
+    __device__ __forceinline__ void run()
+    {
+        const long long start = clk();
+        if (s0 < s1) {
+            int acc0[NACC], acc1[NACC];
+            for (long L = s0; L < s1; L += 2) {
+                step(acc0, acc1, L);
+                if (L + 1 < s1)
+                    step(acc1, acc0, L + 1);
+            }
+            if ((s1 - 1 - s0) % 2 == 0)
+                finish(acc0, s1 - 1, pslot);
+            else
+                finish(acc1, s1 - 1, pslot);
+        }
+        if (PROF && wtid == 0) {
+            pt[PROF_TOTAL] = clk() - start;
+            for (int i = 0; i <= PROF_TOTAL; ++i)
+                atomicAdd(reinterpret_cast<u64*>(a.prof) + i, (u64)pt[i]);
+        }
+    }
+};
 
 template <int SP, bool PROF>
-__global__ void __launch_bounds__(NT, 2)
-score_step_kernel(const uint32_t* __restrict__ codes,  // [B, Lpad/4]
-                  const int32_t* __restrict__ rl,       // [B]
-                  const int32_t* __restrict__ rows,     // [cap] or null
-                  const int32_t* __restrict__ count,    // [1] or null
-                  int cap,
-                  const uint8_t* __restrict__ bank,     // [nb]
-                  long nb,
-                  const int32_t* __restrict__ qmeta,    // [8, Qp]
-                  const int32_t* __restrict__ tseg,     // [Qp]
-                  u64* __restrict__ basecount,          // [5, G]
-                  u64* __restrict__ seqhits,            // [T + 1]
-                  u64* __restrict__ seqbasehits,        // [T + 1]
-                  int Lpad, int Qp, int G, int maxerrors, int minoverlap,
-                  long long* __restrict__ prof)         // [PROF_N] or null
+__global__ void __launch_bounds__(NTHREADS, 1)
+score_step_kernel(const __grid_constant__ Args a,
+                  const __grid_constant__ Layout lay)
 {
-    long long pt[PROF_N] = {};
-    const long long p_start = PROF ? clock64() : 0;
-    constexpr int R = Tile<SP>::R;
-    constexpr int NACC = Tile<SP>::NACC;
+    constexpr int R = 16 / SP;
     extern __shared__ __align__(128) uint8_t smem[];
-    uint8_t* As = smem;
-    uint32_t* Bw = reinterpret_cast<uint32_t*>(smem + A_BYTES);
-    uint16_t* list = reinterpret_cast<uint16_t*>(smem + MMA_SMEM);
-    __shared__ int col_dm[TQ], col_ovc[TQ], col_seql[TQ];
-    __shared__ int row_rl[TB], row_rlmo[TB], row_id[TB];
-    __shared__ int list_n;
-
+    __shared__ Shared sh;
     const int tid = threadIdx.x;
-    const int lane = tid & 31, warp = tid >> 5;
-    const int g = lane >> 2, t = lane & 3;
-    const int wg = warp >> 2;
-    const int ntiles = min(QT, (Qp + TQ - 1) / TQ - (int)blockIdx.x * QT);
-    // ranks at or past the count are never read
-    const int n = count ? min(max(*count, 0), cap) : cap;
-    if (tid == 0)
-        list_n = 0;
+    // ranks at or past the count are never read; the count, the range and
+    // the role are warp-uniform, as the compiler can see (a branch it
+    // takes for divergent serialises the MMAs)
+    const int n = __shfl_sync(0xFFFFFFFFu,
+                              a.count ? min(max(*a.count, 0), a.cap) : a.cap,
+                              0);
+    const int role = __shfl_sync(0xFFFFFFFFu, tid >> 7, 0);
+    const int ngroups = (a.Qp + GC - 1) / GC;
+    const long total = (long)((n + TB - 1) / TB) * ngroups * NSTAGE;
+    const long s0 = total * blockIdx.x / gridDim.x;
+    const long s1 = total * (blockIdx.x + 1) / gridDim.x;
 
-    for (int b0 = blockIdx.y * TB; b0 < n; b0 += gridDim.y * TB) {
-        if (tid >= TQ) {
-            const int r = tid - TQ;
-            const int row = b0 + r < n ? (rows ? rows[b0 + r] : b0 + r) : -1;
-            row_id[r] = row;
-            row_terms(row_rl, row_rlmo, r, row >= 0 ? rl[row] : 0,
-                      maxerrors, minoverlap);
+    if (tid == 0) {
+        for (int i = 0; i < NSLOT; ++i) {
+            mbar_init(&sh.full[i], 1);
+            mbar_init(&sh.empty[i], NCW);
         }
-        __syncthreads();
-        int rlv[2], rlmo_e[2];
-        for (int h = 0; h < 2; ++h) {
-            rlv[h] = row_rl[acc_read(warp, g, h)];
-            rlmo_e[h] = row_rlmo[acc_read(warp, g, h)];
-        }
-
-        for (int tile = 0; tile < ntiles; ++tile) {
-            const int q0 = (blockIdx.x * QT + tile) * TQ;
-            long long c0 = PROF ? clock64() : 0;
-            column_terms(col_dm, col_ovc, col_seql, qmeta, Qp, q0,
-                         maxerrors, tid);
-            if (PROF)
-                pt[PROF_BUILD] += clock64() - c0;
-            int acc[R][NACC];
-            tile_products<SP, PROF>(acc, As, Bw, codes, row_id, Lpad, bank,
-                                    nb, q0, tile > 0, tid, wg, pt);
-            if (PROF)
-                c0 = clock64();
-#pragma unroll
-            for (int s = 0; s < R; ++s)
-                screen<R, NACC>(
-                    acc[s], s, t, rlv, rlmo_e, col_dm, col_ovc, col_seql,
-                    [&](int h, int col) {
-                        list[atomicAdd(&list_n, 1)] =
-                            (uint16_t)(col << 7 | acc_read(warp, g, h));
-                    });
-            if (PROF) {
-                const long long c1 = clock64();
-                pt[PROF_SCREEN] += c1 - c0;
-                c0 = c1;
-            }
-            __syncthreads();   // the list is complete
-            if (PROF) {
-                const long long c1 = clock64();
-                pt[PROF_WAIT] += c1 - c0;
-                c0 = c1;
-            }
-            const int nl = list_n;
-            if (nl > 0)
-                drain<SP>(list, nl, row_id, row_rl,
-                          reinterpret_cast<const uint8_t*>(codes), bank, nb,
-                          qmeta, tseg, basecount, seqhits, seqbasehits,
-                          Lpad, Qp, G, q0, maxerrors, minoverlap, warp,
-                          lane);
-            if (PROF) {
-                const long long c1 = clock64();
-                pt[PROF_DRAIN] += c1 - c0;
-                c0 = c1;
-            }
-            // the list, the column and the row terms are read before
-            // they change
-            __syncthreads();
-            if (PROF)
-                pt[PROF_WAIT] += clock64() - c0;
-            if (tid == 0)
-                list_n = 0;
-        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-    if (PROF && (tid & 127) == 0) {
-        pt[PROF_TOTAL] = clock64() - p_start;
-        for (int i = 0; i < PROF_N; ++i)
-            atomicAdd(reinterpret_cast<u64*>(prof) + i, (u64)pt[i]);
+    if (tid < NCW * 3) {
+        sh.list_n[tid / 3][tid % 3] = 0;
+        sh.lo[tid / 3][tid % 3] = INT_BIG;
+        sh.hi[tid / 3][tid % 3] = -1;
+    }
+    uint32_t* hist = reinterpret_cast<uint32_t*>(smem + lay.hist_off);
+    for (int i = tid; i < NCW * 5 * lay.hp; i += NTHREADS)
+        hist[i] = 0;
+    __syncthreads();
+
+    if (role == NCW) {
+        // the producer: one thread stages each group of the block's range
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+        if (__shfl_sync(0xFFFFFFFFu, tid >> 5, 0) != 4 * NCW)
+            return;      // one warp waits, its first thread copies
+        const bool lead = tid == 128 * NCW;
+        long long stage = 0, waited = 0;
+        int slot = 0, phase = 0;
+        for (long L = s0; L < s1; L = (L / NSTAGE + 1) * NSTAGE) {
+            const int g = (int)((L / NSTAGE) % ngroups);
+            const long long c0 = PROF ? clock64() : 0;
+            mbar_wait(&sh.empty[slot], phase ^ 1);
+            const long long c1 = PROF ? clock64() : 0;
+            if (lead) {
+                uint8_t* dst = smem + lay.slot_off + slot * lay.slot_bytes;
+                mbar_arrive_tx(&sh.full[slot], R * lay.win + TERM_BYTES);
+                for (int s = 0; s < R; ++s)
+                    bulk_copy(dst + s * lay.win,
+                              a.onehot + s * a.onb + (long)SP * GC * g,
+                              lay.win, &sh.full[slot]);
+                bulk_copy(dst + R * lay.win,
+                          a.sterms + (long)g * NSTAGE * 128, TERM_BYTES,
+                          &sh.full[slot]);
+            }
+            __syncwarp();
+            if (PROF) {
+                waited += c1 - c0;
+                stage += clock64() - c1;
+            }
+            if (++slot == NSLOT) {
+                slot = 0;
+                phase ^= 1;
+            }
+        }
+        if (PROF && lead) {
+            atomicAdd(reinterpret_cast<u64*>(a.prof) + PROF_STAGE,
+                      (u64)stage);
+            atomicAdd(reinterpret_cast<u64*>(a.prof) + PROF_STAGE_WAIT,
+                      (u64)waited);
+        }
+    } else {
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+        Consumer<SP, PROF> c(a, lay, sh, smem, s0, s1, n, ngroups);
+        c.run();
     }
 }
 
@@ -256,43 +750,54 @@ const char* kvq_cuda_src_hash() { return KVQ_SRC_HASH; }
 // codes: uint8 [B, Lpad] (Lpad % 4 == 0, 4-byte aligned), rl: int32 [B];
 // rows: int32 [cap] batch rows to score, or null (rank r is row r, cap <=
 // B); count: int32 [1] in device memory, the ranks to score (clamped to
-// [0, cap]), or null (all cap); grid_rows: the ranks the grid is sized
-// for (blocks loop over the rest); bank: uint8 [4 * nbw] padded bank
-// bytes (pallas_scan._kernel_bytes); qmeta: int32 [8, Qp]; tseg: int32
-// [Qp]; basecount int64 [5, G], seqhits and seqbasehits int64 [T + 1],
-// added to; prof: int64 [8] or null, each warpgroup's clock64() cycles
-// per phase added to it (PROF_* of kvq_onehot_mma.h).  Returns the CUDA
-// error code of the launch (0 on success).
+// [0, cap]), or null (all cap); bank: uint8 [4 * nbw] padded bank bytes
+// (pallas_scan._kernel_bytes); onehot: uint8 [16 / SP, onb]
+// (pallas_scan.s1_onehot); sterms: int32 [groups * 512, 4]
+// (pallas_scan.s1_terms); qmeta: int32 [8, Qp]; tseg: int32 [Qp];
+// basecount int64 [5, G], seqhits and seqbasehits int64 [T + 1], added
+// to; prof: int64 [8] or null, cycles per phase added to it (PROF_*).
+// One block per SM of the current device.  Returns the CUDA error code of
+// the launch (0 on success; cudaErrorInvalidValue where the read padding
+// leaves no layout within the shared memory).
 int kvq_score_step(const void* codes, const void* rl, const void* rows,
-                   const void* count, int cap, int grid_rows,
-                   const void* bank, int nbw, const void* qmeta,
-                   const void* tseg, void* basecount, void* seqhits,
-                   void* seqbasehits, int Lpad, int Qp, int G, int nch,
-                   int maxerrors, int minoverlap, void* prof,
+                   const void* count, int cap, const void* bank, int nbw,
+                   const void* onehot, long onb, const void* sterms,
+                   const void* qmeta, const void* tseg, void* basecount,
+                   void* seqhits, void* seqbasehits, int Lpad, int Qp, int G,
+                   int nch, int maxerrors, int minoverlap, void* prof,
                    void* stream)
 {
-    if (cap <= 0 || grid_rows <= 0 || Qp <= 0)
+    if (cap <= 0 || Qp <= 0)
         return 0;
     if (Lpad <= 0 || Lpad % 4 || (nch != 4 && nch != 5))
         return (int)cudaErrorInvalidValue;
-    const int ntiles = (Qp + TQ - 1) / TQ;
-    const int tiles_y = (grid_rows + TB - 1) / TB;
-    const dim3 grid((ntiles + QT - 1) / QT,
-                    tiles_y < 65535 ? tiles_y : 65535);
-    // above the 48 KB default: set for the current device at every launch
-    auto kernel = nch == 4
-        ? (prof ? score_step_kernel<4, true> : score_step_kernel<4, false>)
-        : (prof ? score_step_kernel<8, true> : score_step_kernel<8, false>);
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    const int SP = nch == 4 ? 4 : 8;
+    const Layout lay = make_layout(SP, Lpad);
+    if (lay.bytes == 0)
+        return (int)cudaErrorInvalidValue;
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
     if (err != cudaSuccess)
         return (int)err;
-    kernel<<<grid, NT, SMEM, (cudaStream_t)stream>>>(
-        (const uint32_t*)codes, (const int32_t*)rl, (const int32_t*)rows,
-        (const int32_t*)count, cap, (const uint8_t*)bank, 4L * nbw,
-        (const int32_t*)qmeta, (const int32_t*)tseg, (u64*)basecount,
-        (u64*)seqhits, (u64*)seqbasehits, Lpad, Qp, G, maxerrors,
-        minoverlap, (long long*)prof);
+    auto kernel = SP == 4
+        ? (prof ? score_step_kernel<4, true> : score_step_kernel<4, false>)
+        : (prof ? score_step_kernel<8, true> : score_step_kernel<8, false>);
+    // above the 48 KB default: set for the current device at every launch
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
+    if (err != cudaSuccess)
+        return (int)err;
+    Args a = {(const uint32_t*)codes, (const int32_t*)rl,
+              (const int32_t*)rows, (const int32_t*)count, cap,
+              (const uint8_t*)bank, 4L * nbw, (const uint8_t*)onehot, onb,
+              (const int4*)sterms, (const int32_t*)qmeta,
+              (const int32_t*)tseg, (u64*)basecount, (u64*)seqhits,
+              (u64*)seqbasehits, Lpad, Qp, G, maxerrors, minoverlap,
+              (long long*)prof};
+    kernel<<<sms, NTHREADS, lay.bytes, (cudaStream_t)stream>>>(a, lay);
     return (int)cudaGetLastError();
 }
 

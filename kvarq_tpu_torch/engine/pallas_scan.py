@@ -119,6 +119,8 @@ class BankState:
     bank: torch.Tensor    # uint8 [4*n] bank bytes for the kernel
     qmeta: torch.Tensor   # int32 [8, Qp] (pack_qmeta rows)
     tseg: torch.Tensor    # int32 [Qp] column -> template, T for gaps
+    onehot: torch.Tensor  # uint8 [R, nb] S1's one-hot bank (s1_onehot)
+    sterms: torch.Tensor  # int32 [groups*S1_STAGES*128, 4] (s1_terms)
 
 
 def _match_dtype(device, Lpad):
@@ -147,6 +149,77 @@ def _kernel_bytes(bpad, nch):
     return out
 
 
+# S1's schedule (csrc/score_step.cu): shift columns per column group, whose
+# bank windows and screen terms are staged together, and MMA stages (128
+# columns each) per group
+S1_GROUP = 512
+S1_STAGES = 4
+# screen terms past Qp: a threshold no count reaches (score_step.cu NEVER)
+S1_NEVER = 1 << 29
+
+
+def s1_depth(Lpad, nch):
+    ''' ``(SP, DP)``: S1's depth bytes per read position (4 for nch 4: A C
+        G T; 8 for nch 5: A C G T N and three zero bytes) and the depth
+        bytes its MMAs read, whole k32 steps of 32 bytes '''
+    SP = 4 if nch == 4 else 8
+    return SP, -(-SP * Lpad // 32) * 32
+
+
+def s1_onehot(kbytes, nch, Lpad, Qp):
+    '''
+    S1's one-hot bank, from which its bank windows are copied: uint8 ``[R,
+    nb]``, R = 16 / SP copies of the one-hot of the kernel bytes
+    (:py:func:`_kernel_bytes`; SP bytes per position, :py:func:`s1_depth`;
+    the sentinel and positions past the bytes all zero), copy ``s``
+    moved by ``s`` positions: ``out[s, i] = flat[SP * s + i]``.  So the
+    window of residue ``s`` (columns ``q = s (mod R)``) of every column
+    group starts on a 16-byte boundary of copy ``s``, at ``SP * q0``
+    for the group's first column ``q0``.  ``nb`` covers every group's
+    window, ``SP * S1_GROUP`` bytes plus the MMAs' depth.
+    '''
+    SP, DP = s1_depth(Lpad, nch)
+    R = 16 // SP
+    nb = SP * S1_GROUP * -(-Qp // S1_GROUP) + DP
+    kb = np.full(nb // SP + R, BANK_SENTINEL, dtype=np.uint8)
+    n = min(len(kbytes), len(kb))
+    kb[:n] = kbytes[:n]
+    flat = (kb[:, None] == np.arange(SP, dtype=np.uint8)).astype(np.uint8)
+    flat = flat.reshape(-1)
+    return np.stack([flat[SP * s:SP * s + nb] for s in range(R)])
+
+
+def s1_terms(qmeta, nch):
+    '''
+    S1's screen terms in its stage order: int32 ``[groups * S1_STAGES *
+    128, 4]``, row ``(g * S1_STAGES + k) * 128 + c`` for the column ``q =
+    g * S1_GROUP + (k // R) * 128 * R + k % R + R * c`` that MMA column
+    ``c`` of stage ``k`` of group ``g`` scores: ``(dm, ovc, seql, 0)`` --
+    qmeta's ``ROW_DM`` and ``ROW_OVC``, the template length where the
+    column is valid (else ``BIG_RL_THRESHOLD``); :py:data:`S1_NEVER`
+    past ``Qp``.  The screen of :py:func:`cand_counts_ref` passes a pair
+    when ``matches + e >= max(min(rl + dm, ovc), min(rlmo, seql))`` with
+    these terms (``rlmo``: ``min(rl, mo)``, ``BIG_RL_THRESHOLD`` for an
+    empty row): the errors ``e`` move to the count's side.
+    '''
+    SP, _ = s1_depth(1, nch)
+    R = 16 // SP
+    Qp = qmeta.shape[1]
+    ngroups = -(-Qp // S1_GROUP)
+    g = np.arange(ngroups)[:, None, None]
+    k = np.arange(S1_STAGES)[None, :, None]
+    c = np.arange(128)[None, None, :]
+    q = (g * S1_GROUP + (k // R) * 128 * R + k % R + R * c).reshape(-1)
+    ok = q < Qp
+    qc = np.where(ok, q, 0)
+    out = np.zeros((len(q), 4), dtype=np.int32)
+    out[:, 0] = np.where(ok, qmeta[ROW_DM, qc], S1_NEVER)
+    out[:, 1] = np.where(ok, qmeta[ROW_OVC, qc], S1_NEVER)
+    out[:, 2] = np.where(~ok, S1_NEVER, np.where(
+        qmeta[ROW_VALID, qc] > 0, qmeta[ROW_SEQL, qc], BIG_RL_THRESHOLD))
+    return out
+
+
 def one_hot(codes, nch, dtype):
     ''' one-hot by comparison: codes >= nch (junk, and N when nch is 4)
         give zero rows, as jax.nn.one_hot does (F.one_hot would raise) '''
@@ -169,13 +242,16 @@ def _state(bpad, qmeta, tseg, Lpad, G, T, nch, device, K=None):
         K = build_K(torch.from_numpy(bpad).to(device), Lpad, Qp, nch, dtype)
     else:
         K = torch.from_numpy(np.ascontiguousarray(K)).to(device, dtype)
+    qmeta = np.ascontiguousarray(qmeta, np.int32)
+    kbytes = _kernel_bytes(bpad, nch)
     return BankState(
         Lpad=Lpad, G=G, Qp=Qp, T=T, nch=nch, K=K.contiguous(),
-        bank=torch.from_numpy(_kernel_bytes(bpad, nch)).to(device),
-        qmeta=torch.from_numpy(np.ascontiguousarray(qmeta, np.int32))
-        .to(device),
+        bank=torch.from_numpy(kbytes).to(device),
+        qmeta=torch.from_numpy(qmeta).to(device),
         tseg=torch.from_numpy(np.ascontiguousarray(tseg, np.int32))
-        .to(device))
+        .to(device),
+        onehot=torch.from_numpy(s1_onehot(kbytes, nch, Lpad, Qp)).to(device),
+        sterms=torch.from_numpy(s1_terms(qmeta, nch)).to(device))
 
 
 def device_arrays(bank, T, device):
@@ -371,8 +447,8 @@ def _score_lib():
     fn = lib.kvq_score_step
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, i, i, vp, i, vp, vp, vp, vp, vp,
-                       i, i, i, i, i, i, vp, vp]
+        fn.argtypes = [vp, vp, vp, vp, i, vp, i, vp, ctypes.c_long, vp, vp,
+                       vp, vp, vp, vp, i, i, i, i, i, i, vp, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -381,11 +457,17 @@ def _check_score_args(codes, rl, state, idx, count):
     ''' the types, shapes and devices :py:func:`score_candidates` takes on
         either device; raises ValueError '''
     B = codes.shape[0] if codes.dim() == 2 else -1
+    SP, DP = s1_depth(state.Lpad, state.nch)
+    ngroups = -(-state.Qp // S1_GROUP)
     args = [('codes', codes, torch.uint8, (B, state.Lpad)),
             ('rl', rl, torch.int32, (B,)),
             ('bank', state.bank, torch.uint8, tuple(state.bank.shape)),
             ('qmeta', state.qmeta, torch.int32, (8, state.Qp)),
-            ('tseg', state.tseg, torch.int32, (state.Qp,))]
+            ('tseg', state.tseg, torch.int32, (state.Qp,)),
+            ('onehot', state.onehot, torch.uint8,
+             (16 // SP, SP * S1_GROUP * ngroups + DP)),
+            ('sterms', state.sterms, torch.int32,
+             (ngroups * S1_STAGES * 128, 4))]
     if idx is not None:
         args.append(('idx', idx, torch.int32, (min(len(idx), B),)))
     if count is not None:
@@ -404,7 +486,7 @@ def _check_score_args(codes, rl, state, idx, count):
 
 
 def score_candidates(codes, rl, state, maxerrors, minoverlap, idx=None,
-                     count=None, grid_rows=None, rows=None, profile=None):
+                     count=None, rows=None, profile=None):
     '''
     exact scoring of rows of one batch: ``(basecount [5, G], seqhits
     [T+1], seqbasehits [T+1])``, int64 -- kvarq_tpu's ``score_full`` over
@@ -415,8 +497,6 @@ def score_candidates(codes, rl, state, maxerrors, minoverlap, idx=None,
     :param idx: int32 ``[n]`` batch rows to score (None: every row)
     :param count: int32 tensor of one element on the device of ``codes``:
         score ``idx[:count]`` (None: all of ``idx``)
-    :param grid_rows: the rows the kernel's grid is sized for (blocks loop
-        over the rest, so any count is scored in full); None: all
     :param rows: reads per pass of the plain version
     :param profile: int64 ``[8]`` tensor on the card, or None: the
         kernel adds each warpgroup's clock cycles per phase to it
@@ -424,7 +504,8 @@ def score_candidates(codes, rl, state, maxerrors, minoverlap, idx=None,
 
     On a CPU tensor this is :py:func:`score_candidates_ref`.  On a CUDA
     tensor it launches csrc/score_step.cu (S1) on the current stream, or
-    raises; the count is read on the card, never on the host.
+    raises; the count is read on the card, never on the host, and the
+    kernel's grid (one block per SM) does not depend on it.
     ``score_candidates.launches`` counts those launches.
     '''
     _check_score_args(codes, rl, state, idx, count)
@@ -452,14 +533,15 @@ def score_candidates(codes, rl, state, maxerrors, minoverlap, idx=None,
     cap = B if idx is None else len(idx)
     if cap == 0:
         return bc.view(encode.NBASE, G), sh, sbh
-    grid = cap if grid_rows is None else max(1, min(grid_rows, cap))
     with torch.cuda.device(codes.device):
         err = _score_lib()(
             codes.data_ptr(), rl.data_ptr(),
             None if idx is None else idx.data_ptr(),
-            None if count is None else count.data_ptr(), cap, grid,
+            None if count is None else count.data_ptr(), cap,
             state.bank.data_ptr(), state.bank.numel() // 4,
-            state.qmeta.data_ptr(), state.tseg.data_ptr(), bc.data_ptr(),
+            state.onehot.data_ptr(), state.onehot.shape[1],
+            state.sterms.data_ptr(), state.qmeta.data_ptr(),
+            state.tseg.data_ptr(), bc.data_ptr(),
             sh.data_ptr(), sbh.data_ptr(), Lpad, state.Qp, G, state.nch,
             maxerrors, minoverlap,
             None if profile is None else profile.data_ptr(),
@@ -509,8 +591,8 @@ def scan_step_banked(codes, rl, state, maxerrors, minoverlap, gather_k=768,
 
     Dense mode (``gather_k`` 0, or not below B) scores every read.
     Otherwise the candidate screen flags reads, they are compacted on the
-    device (:py:func:`compact`) and scored exactly; the scoring's grid is
-    sized for ``gather_k`` of them and covers more when more flag, which
+    device (:py:func:`compact`) and scored exactly, however many flag
+    (the scoring kernel's grid does not depend on the count), which
     equals kvarq_tpu's full-batch fallback (a read the screen does not
     flag scores nothing).  On a CUDA tensor nothing here reads a device
     value on the host, and nothing of size ``[B, Qp]`` is allocated.
@@ -523,4 +605,4 @@ def scan_step_banked(codes, rl, state, maxerrors, minoverlap, gather_k=768,
     hit = cand_counts(codes, rl, state, maxerrors, minoverlap, state.nch) > 0
     idx, count = compact(hit)
     return (*score_candidates(codes, rl, state, maxerrors, minoverlap, idx,
-                              count, gather_k, rows), count)
+                              count, rows), count)

@@ -64,6 +64,24 @@ def cuda_time_ms(fn, reps=5):
     return float(np.median(times))
 
 
+def kernel_ms(fn, name, reps=20):
+    ''' the median device time (ms) of the kernels called ``name`` in
+        ``reps`` calls of fn() under torch.profiler, after one warm-up: the
+        kernel alone, without the launch's host time, which CUDA events
+        around one small launch include '''
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.device_time for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name]
+    return float(np.median(times)) / 1e3 if times else None
+
+
 def roofline(ops, nbytes):
     ''' the least time of ``ops`` int8 operations and ``nbytes`` bytes on
         the card: the longer of the two at its peak rates '''
@@ -182,6 +200,7 @@ def measure(tps, codes, rl, state, e, mo, deep=False, reps=5):
         times = [cuda_time_ms(f, reps) for f in (plain, kernel, kernel, plain)]
         b = s1_bound(rows, Lpad, state, bool(args))
         out[form] = dict(rows=rows, ms=min(times[1:3]),
+                         kernel_ms=kernel_ms(kernel, 'score_step_kernel'),
                          plain_ms=min(times[0], times[3]), ms_runs=times,
                          bound_ms=b['bound_ms'], bound_by=b['bound_by'],
                          ops=b['ops'], bytes=b['bytes'], max_abs_err=err,
@@ -194,13 +213,15 @@ def describe(form, r):
     ''' one line of :py:func:`measure`'s result for ``form`` '''
     s = r['split']
     return ('%s: %d rows, %d hit weight, exact; kernel %.4f / %.4f ms, plain '
-            '%.3f / %.3f ms (plain, kernel, kernel, plain); bound %.4f ms '
-            '(%s), the kernel at %.1f%% of it; split of %d warpgroup cycles: '
+            '%.3f / %.3f ms (CUDA events, plain, kernel, kernel, plain); the '
+            'kernel alone %.4f ms (profiler); bound %.4f ms (%s), the kernel '
+            'at %.1f%% of it; split of %d warpgroup cycles: '
             'build %.1f%%, mma %.1f%%, screen %.1f%%, drain %.1f%%, waits '
             '%.1f%%; producer staging %d, waiting %d cycles' % (
                 form, r['rows'], r['hit_weight'], r['ms_runs'][1],
                 r['ms_runs'][2], r['ms_runs'][0], r['ms_runs'][3],
-                r['bound_ms'], r['bound_by'], 100 * r['bound_ms'] / r['ms'],
+                r['kernel_ms'] or float('nan'), r['bound_ms'], r['bound_by'],
+                100 * r['bound_ms'] / (r['kernel_ms'] or r['ms']),
                 s['cycles'], 100 * s['build'], 100 * s['mma'],
                 100 * s['screen'], 100 * s['drain'], 100 * s['wait'],
                 s['stage'], s['stage_wait']))

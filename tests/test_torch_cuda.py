@@ -249,24 +249,30 @@ def _state(cuda, bank, Lpad, nch):
 
 def _score_equal(c, r, state, form, params=((2, 25), (3, 8))):
     ''' S1 equals score_candidates_ref exactly: ``dense`` scores every row;
-        ``gathered`` the rows K1 flags, compacted, on a grid that holds
-        them all; ``overflow`` the same on a grid for a third of them.
-        The ranks past the count hold real rows, which must not be read.
+        ``gathered`` the rows K1 flags, compacted (the ranks past the
+        count hold real rows, which must not be read); ``above_gather_k``
+        the scan step whose count is above its ``gather_k`` (a third of
+        the candidates) scores them all.
         :returns: the hit weight of the first ``(e, mo)`` '''
     weight = None
     for e, mo in params:
         if form == 'dense':
-            args, kw = (), {}
+            args = ()
         else:
             hit = tps.cand_counts(c, r, state, e, mo, state.nch) > 0
             idx, count = tps.compact(hit)
             n = int(count)
             idx[n:] = torch.arange(len(idx) - n, dtype=torch.int32,
                                    device=c.device)
-            grid = n + 1 if form == 'gathered' else max(1, n // 3)
-            args, kw = (idx, count), dict(grid_rows=grid)
+            args = (idx, count)
         before = tps.score_candidates.launches
-        got = tps.score_candidates(c, r, state, e, mo, *args, **kw)
+        if form == 'above_gather_k':
+            k = max(1, n // 3)
+            got = tps.scan_step_banked(c, r, state, e, mo, k)
+            assert int(got[3]) == (n if k < len(c) else 0)   # else dense
+            got = got[:3]
+        else:
+            got = tps.score_candidates(c, r, state, e, mo, *args)
         torch.cuda.synchronize()
         assert tps.score_candidates.launches == before + 1
         want = tps.score_candidates_ref(c, r, state, e, mo, *args,
@@ -281,7 +287,7 @@ def _score_equal(c, r, state, form, params=((2, 25), (3, 8))):
     return weight
 
 
-@pytest.mark.parametrize('form', ['dense', 'gathered', 'overflow'])
+@pytest.mark.parametrize('form', ['dense', 'gathered', 'above_gather_k'])
 @pytest.mark.parametrize('bank', ['one tile', 'MTBC'])
 @pytest.mark.parametrize('nch', [4, 5])
 @pytest.mark.parametrize('Lpad', [36, 64, 128, 192])
@@ -289,7 +295,7 @@ def _score_equal(c, r, state, form, params=((2, 25), (3, 8))):
 def test_score_kernel_equals_ref(cuda, B, Lpad, nch, bank, form):
     ''' S1 at every read padding the reader makes (and 36), both channel
         counts, a one-tile and the whole MTBC bank, one read to a
-        main-path batch, dense, gathered and overflowing its grid '''
+        main-path batch, dense, gathered and above the step's gather_k '''
     seqs, state = _state(cuda, bank, Lpad, nch)
     assert state.nch == nch
     rng = np.random.RandomState(B + Lpad + nch)
@@ -299,7 +305,7 @@ def test_score_kernel_equals_ref(cuda, B, Lpad, nch, bank, form):
     assert weight > 0 or B == 1
 
 
-@pytest.mark.parametrize('form', ['dense', 'gathered', 'overflow'])
+@pytest.mark.parametrize('form', ['dense', 'gathered', 'above_gather_k'])
 @pytest.mark.parametrize('nch', [4, 5])
 def test_score_kernel_on_bank_shards(cuda, nch, form):
     ''' S1 on each shard of the MTBC bank split in two '''
@@ -310,6 +316,51 @@ def test_score_kernel_on_bank_shards(cuda, nch, form):
     c, r = torch.from_numpy(codes).to(cuda), torch.from_numpy(rl).to(cuda)
     for j in range(2):
         assert _score_equal(c, r, bank.state(j, cuda), form) > 0
+
+
+@pytest.mark.parametrize('nch', [4, 5])
+@pytest.mark.parametrize('n', [0, 1, 127, 128, 129, 535, 'B'])
+def test_score_kernel_at_counts(cuda, nch, n):
+    ''' S1 over idx[:count], count read on the card, at counts on and
+        around the edges of its row tiles (128 reads): every rank below
+        the count scored once, none past it (they hold real rows) '''
+    seqs, state = _state(cuda, 'MTBC', 128, nch)
+    rng = np.random.RandomState(90 + nch)
+    B = 1536
+    codes, rl = _planted_reads(rng, seqs, B, 128, nch)
+    n = B if n == 'B' else n
+    c, r = torch.from_numpy(codes).to(cuda), torch.from_numpy(rl).to(cuda)
+    idx = torch.from_numpy(rng.permutation(B).astype(np.int32)).to(cuda)
+    count = torch.tensor(n, dtype=torch.int32, device=cuda)
+    for e, mo in ((2, 25), (3, 8)):
+        got = tps.score_candidates(c, r, state, e, mo, idx, count)
+        want = tps.score_candidates_ref(c, r, state, e, mo, idx, count)
+        for name, w, g in zip(('basecount', 'seqhits', 'seqbasehits'),
+                              want, got):
+            np.testing.assert_array_equal(
+                g.cpu().numpy(), w.cpu().numpy(),
+                err_msg='%s n=%d e=%d' % (name, n, e))
+        assert int(want[1].sum()) > 0 if n >= 128 else n > 0 or \
+            int(want[1].sum()) == 0
+
+
+@pytest.mark.parametrize('nch', [4, 5])
+@pytest.mark.parametrize('Lpad', [64, 128, 192])
+def test_score_kernel_deep_locus(cuda, nch, Lpad):
+    ''' every row the same planted read, so that one locus takes all the
+        coverage: the drain's histogram on a deep locus, dense and
+        gathered '''
+    seqs, state = _state(cuda, 'MTBC', Lpad, nch)
+    piece = max(seqs, key=len)[:Lpad - 8].encode()
+    raw = np.full((1, Lpad), ord('A'), dtype=np.uint8)
+    raw[0, 4:4 + len(piece)] = np.frombuffer(piece, np.uint8)
+    codes = encode.encode_read_array(raw)
+    codes[0, 4 + len(piece):] = encode.CODE_READ_JUNK
+    codes = np.repeat(codes, 4096, 0)
+    rl = np.full(4096, 4 + len(piece), dtype=np.int32)
+    c, r = torch.from_numpy(codes).to(cuda), torch.from_numpy(rl).to(cuda)
+    for form in ('dense', 'gathered'):
+        assert _score_equal(c, r, state, form) >= 4096
 
 
 def test_score_candidates_rejects_bad_input(cuda):

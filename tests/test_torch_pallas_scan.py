@@ -84,7 +84,7 @@ def test_state_from_numpy_matches_device_arrays(nch):
     for f in ('Lpad', 'G', 'Qp', 'T', 'nch'):
         assert getattr(a, f) == getattr(b, f), f
     assert a.nch == nch and a.Qp == qmeta.shape[1]
-    for f in ('K', 'bank', 'qmeta', 'tseg'):
+    for f in ('K', 'bank', 'qmeta', 'tseg', 'onehot', 'sterms'):
         np.testing.assert_array_equal(getattr(a, f).numpy(),
                                       getattr(b, f).numpy(), err_msg=f)
     np.testing.assert_array_equal(b.K.numpy(), K.astype(np.float32))
@@ -235,6 +235,77 @@ def test_score_candidates_rejects_bad_input():
         tps.score_candidates(c.to('meta'), r.to('meta'),
                              tps.device_arrays(bank, len(seqs), 'meta'),
                              0, 25)
+
+
+@pytest.mark.parametrize('nch', [4, 5])
+@pytest.mark.parametrize('Lpad', [36, 64, 128, 192])
+def test_s1_onehot_bank_is_the_moved_one_hot(nch, Lpad):
+    ''' S1's one-hot bank: copy s is one_hot of the kernel bytes moved by
+        s positions (SP bytes a position, the channels past nch zero); the
+        window row of every column q (residue q % R, 16-byte aligned)
+        reads K's column q '''
+    seqs, _, _, bank = _case(60 + Lpad, nch, Lpad=Lpad, nseq=9)
+    state = tps.device_arrays(bank, len(seqs), 'cpu')
+    SP, DP = tps.s1_depth(Lpad, nch)
+    R = 16 // SP
+    oh = state.onehot.numpy()
+    ngroups = -(-state.Qp // tps.S1_GROUP)
+    assert oh.shape == (R, SP * tps.S1_GROUP * ngroups + DP)
+    assert oh.shape[1] % 16 == 0
+    kbytes = torch.from_numpy(
+        tps._kernel_bytes(tps._padded_bank(bank.codes, Lpad, state.Qp), nch))
+    assert torch.equal(kbytes, state.bank)
+    npos = oh.shape[1] // SP
+    for s in range(R):
+        moved = torch.full((npos,), tps.BANK_SENTINEL, dtype=torch.uint8)
+        part = kbytes[s:s + npos]
+        moved[:len(part)] = part
+        want = torch.zeros((npos, SP), dtype=torch.uint8)
+        want[:, :nch] = tps.one_hot(moved, nch, torch.uint8)
+        np.testing.assert_array_equal(oh[s].reshape(npos, SP), want.numpy(),
+                                      err_msg='copy %d' % s)
+    K = state.K.numpy().reshape(Lpad, nch, state.Qp)
+    for q in range(0, state.Qp, 7):
+        s = q % R
+        row = oh[s, SP * (q - s):SP * (q - s) + SP * Lpad].reshape(Lpad, SP)
+        np.testing.assert_array_equal(row[:, :nch], K[:, :, q],
+                                      err_msg='column %d' % q)
+        assert not row[:, nch:].any()
+
+
+@pytest.mark.parametrize('nch', [4, 5])
+@pytest.mark.parametrize('maxerrors,minoverlap', [(0, 25), (2, 25), (3, 8)])
+def test_s1_terms_screen_equals_cand_counts_ref(nch, maxerrors, minoverlap):
+    ''' S1's screen terms in stage order: row (g, k, c) holds column g *
+        S1_GROUP + (k // R) * 128 R + k % R + R c; the screen with the
+        errors on the count's side, over them, passes exactly the pairs of
+        cand_counts_ref '''
+    seqs, codes, rl, bank = _case(70 + maxerrors, nch, B=40,
+                                  minoverlap=minoverlap, nseq=12)
+    state = tps.device_arrays(bank, len(seqs), 'cpu')
+    SP, _ = tps.s1_depth(bank.Lpad, nch)
+    R = 16 // SP
+    terms = state.sterms.numpy()
+    ngroups = -(-state.Qp // tps.S1_GROUP)
+    assert terms.shape == (ngroups * tps.S1_STAGES * 128, 4)
+    g, k, c = np.meshgrid(np.arange(ngroups), np.arange(tps.S1_STAGES),
+                          np.arange(128), indexing='ij')
+    q = (g * tps.S1_GROUP + (k // R) * 128 * R + k % R + R * c).reshape(-1)
+    assert sorted(q[q < state.Qp]) == list(range(state.Qp))
+    assert (terms[q >= state.Qp, :3] == tps.S1_NEVER).all()
+    col = np.full((state.Qp, 3), -1, dtype=np.int64)
+    col[q[q < state.Qp]] = terms[q < state.Qp, :3]
+    c_, r_ = torch.from_numpy(codes), torch.from_numpy(rl)
+    m = tps.match_counts(c_, state.K, nch).long().numpy()
+    rlv = rl.astype(np.int64)[:, None]
+    rlmo = np.where(rlv > 0, np.minimum(rlv, minoverlap),
+                    tps.BIG_RL_THRESHOLD)
+    thr = np.maximum(np.minimum(rlv + col[:, 0], col[:, 1]),
+                     np.minimum(rlmo, col[:, 2]))
+    got = (m + maxerrors >= thr).sum(axis=1)
+    want = tps.cand_counts_ref(c_, r_, state, maxerrors, minoverlap, nch)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert (got > 0).any()
 
 
 def test_one_hot_drops_out_of_range_codes():
