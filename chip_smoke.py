@@ -3,7 +3,8 @@
 Smoke run of kvarq_tpu_torch on one NVIDIA GPU: builds the CUDA kernels
 (the candidate screen K1 and the exact scoring S1, one nvcc each, at the
 same time) from this checkout, checks each against its plain PyTorch
-version at the main-path shapes (S1 dense, gathered and overflowing),
+version at the main-path shapes (S1 dense, gathered and above gather_k,
+with its phase split),
 drives ``kvarq scan``'s coverage path (``countseqs``)
 and its hit-list path (``findseqs``, ``scan -H/-x``) over the 2M-read
 bench corpus with and without the k-mer sieve and over a hit-dense
@@ -52,7 +53,7 @@ DENSE_READS = 262144
 DENSE_PLANT = 0.5
 MAIN_B = 16384      # reads per batch, as the engine's default batchsize
 GATHER_K = 768      # the scanner's first gather_k (tensor_scan)
-OVERFLOW_ROWS = 128     # a grid for fewer rows than a batch's candidates
+ABOVE_K = 128       # a gather_k below a batch's candidates
 # CLI defaults (kvarq_tpu_torch/config.py): e=2, o=25, r=25, Q13 on Sanger
 SCAN = dict(maxerrors=2, minoverlap=25, minreadlength=25, nthreads=8,
             Amin=chr(33 + 13))
@@ -146,20 +147,6 @@ def k1_bound(B, Lpad, state):
     return roofline(ops, nbytes)
 
 
-def s1_bound(rows, Lpad, state, gathered):
-    ''' S1's bound at this call: the one-hot product of the ``rows`` it
-        scores (2 * rows * Lpad * nch * Qp int8 operations) at the card's
-        int8 peak, or its bytes at the memory rate -- the scored rows'
-        codes and read lengths (and indices when ``gathered``), the bank
-        bytes, qmeta and tseg read once, the int64 basecount, seqhits and
-        seqbasehits written once -- whichever is longer '''
-    ops = 2.0 * rows * Lpad * state.nch * state.Qp
-    nbytes = (rows * (Lpad + 4 + (4 if gathered else 0))
-              + state.bank.numel() + 4 * state.qmeta.numel()
-              + 4 * state.tseg.numel() + 8 * (5 * state.G + 2 * (state.T + 1)))
-    return roofline(ops, nbytes)
-
-
 def roofline(ops, nbytes):
     ''' the least time of ``ops`` int8 operations and ``nbytes`` bytes on
         the card: the longer of the two at its peak rates '''
@@ -169,63 +156,37 @@ def roofline(ops, nbytes):
                 bound_by='operations' if t_ops >= t_bytes else 'bytes')
 
 
-def s1_phase(tps, native_cuda, codes, rl, state, flags, e, mo, mm_ms, card):
+def s1_phase(tps, native_cuda, codes, rl, state, e, mo, mm_ms, card):
     '''
     phase (b), S1 on the main-path batch against its plain version
-    (``score_candidates_ref``), exactly, in its three forms: ``dense``
-    (every read: the step of the sieved main path), ``gathered`` (the
-    reads K1 flags, compacted on the card, the grid sized for gather_k
-    768: the unsieved step) and ``overflow`` (the same on a grid for 128
-    reads, fewer than the candidates, so its blocks loop).  Each is timed
-    with CUDA events, median of 5, in turns plain, kernel, kernel, plain,
-    beside its bound.
+    (``score_candidates_ref``), exactly, in its forms
+    (``tools/s1_bench.py``): ``dense`` (every read: the step of the sieved
+    main path), ``gathered`` (the reads K1 flags, compacted on the card:
+    the unsieved step) and ``above_gather_k`` (the same rows, as the step
+    whose count is above its gather_k scores them: one launch shape with
+    ``gathered``, since the kernel's grid does not depend on the count).
+    Each is timed with CUDA events, median of 5, in turns plain, kernel,
+    kernel, plain, and under the profiler (the kernel alone), beside its
+    bound, with the phase split of its profile buffer.
 
-    :returns: ``{form: {rows, ms, plain_ms, bound_ms, bound_by},
-        'max_abs_err': 0}``
+    :returns: ``{form: s1_bench.measure's entry, 'max_abs_err': 0}``
     '''
-    import torch
-    B, Lpad = codes.shape
-    idx, count = tps.compact(flags > 0)
-    n = int(count)
-    check(OVERFLOW_ROWS < n <= GATHER_K, 'the main-path batch has %d '
-          'candidates, not in (%d, %d]' % (n, OVERFLOW_ROWS, GATHER_K))
-    forms = {'dense': ((), {}, B),
-             'gathered': ((idx, count), dict(grid_rows=GATHER_K), n),
-             'overflow': ((idx, count), dict(grid_rows=OVERFLOW_ROWS), n)}
-    out = {'max_abs_err': 0}
-    for form, (args, kw, rows) in forms.items():
-        got = tps.score_candidates(codes, rl, state, e, mo, *args, **kw)
-        want = tps.score_candidates_ref(codes, rl, state, e, mo, *args)
-        torch.cuda.synchronize()
-        err = max(int((g - w).abs().max()) for g, w in zip(got, want))
-        check(err == 0, 'S1 differs from score_candidates_ref at the '
-              'main-path shape, %s (max abs err %d)' % (form, err))
-        weight = int(want[1][:-1].sum())
-        check(weight > 0, 'S1 %s: no hit weight' % form)
-        del got, want
-
-        def kernel(args=args, kw=kw):
-            tps.score_candidates(codes, rl, state, e, mo, *args, **kw)
-
-        def plain(args=args):
-            tps.score_candidates_ref(codes, rl, state, e, mo, *args)
-        times = [cuda_time_ms(f) for f in (plain, kernel, kernel, plain)]
-        b = s1_bound(rows, Lpad, state, bool(args))
-        out[form] = dict(rows=rows, ms=min(times[1:3]),
-                         plain_ms=min(times[0], times[3]),
-                         bound_ms=b['bound_ms'], bound_by=b['bound_by'])
-        say('b', 'S1 == score_candidates_ref exactly, %s (%d of B=%d reads '
-            'scored, grid for %s, %d hit weight); kernel %.3f / %.3f ms, '
-            'plain %.3f / %.3f ms (median of 5 each, plain, kernel, kernel, '
-            'plain); bound %.3f ms (%.3g int8 operations, %.3g bytes: '
-            '%s-bound), the kernel at %.1f%% of it; the fp16 torch.matmul '
-            'of the dense product alone %.3f ms (context); %s' % (
-                form, rows, B, kw.get('grid_rows', B), weight, times[1],
-                times[2], times[0], times[3], b['bound_ms'], b['ops'],
-                b['bytes'], b['bound_by'],
-                100 * b['bound_ms'] / out[form]['ms'], mm_ms, card))
-    say('b', 'ptxas -v of score_step.cu: %s' % ptxas_summary(
+    from kvarq_tpu_torch.tools import s1_bench
+    say('b', 'ptxas -v of score_step.cu: %s' % s1_bench.ptxas_summary(
         native_cuda.ptxas_report.get('score_step.cu', '')))
+    try:
+        out = s1_bench.measure(tps, codes, rl, state, e, mo)
+    except AssertionError as err:
+        raise SmokeFailure('%s at the main-path shape' % err)
+    n = out['gathered']['rows']
+    check(ABOVE_K < n <= GATHER_K, 'the main-path batch has %d candidates, '
+          'not in (%d, %d]' % (n, ABOVE_K, GATHER_K))
+    for form, r in out.items():
+        check(r['hit_weight'] > 0, 'S1 %s: no hit weight' % form)
+        say('b', 'S1 == score_candidates_ref exactly, %s; the fp16 '
+            'torch.matmul of the dense product alone %.3f ms (context); %s'
+            % (s1_bench.describe(form, r), mm_ms, card))
+    out['max_abs_err'] = 0
     return out
 
 
@@ -238,8 +199,8 @@ def no_sync_gate(tps, tts, reader, dev, seqs, held, want, card):
     compaction on the card, S1 on the candidates).  The flushes, and the
     gathered scanner's first step (its one peek at the count), run outside
     that mode.  Both equal ``want`` (the unsieved ``countseqs`` of (c)) bit
-    for bit.  Then one step that overflows its gather_k (128) runs under
-    the mode and equals the dense step.
+    for bit.  Then one step whose count is above its gather_k (128) runs
+    under the mode and equals the dense step.
     '''
     import torch
     check(len(held) >= 64, 'only %d batches in the corpus' % len(held))
@@ -306,38 +267,22 @@ def no_sync_gate(tps, tts, reader, dev, seqs, held, want, card):
     zero_launches(tps)
     torch.cuda.set_sync_debug_mode('error')
     try:
-        over = tps.scan_step_banked(c, r, state, e, mo, OVERFLOW_ROWS)
+        over = tps.scan_step_banked(c, r, state, e, mo, ABOVE_K)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     n = int(over[3])
-    check(n > OVERFLOW_ROWS and tps.score_candidates.launches == 1
-          and tps.cand_counts.launches == 1, 'the overflow step: %d '
+    check(n > ABOVE_K and tps.score_candidates.launches == 1
+          and tps.cand_counts.launches == 1, 'the step above gather_k: %d '
           'candidates, S1 %d and K1 %d launches' % (
               n, tps.score_candidates.launches, tps.cand_counts.launches))
     for what, a, b in zip(('basecount', 'seqhits', 'seqbasehits'), over,
                           dense):
-        check(torch.equal(a, b), 'the overflow step: %s differs from the '
+        check(torch.equal(a, b), 'the step above gather_k: %s differs from the '
               'dense step' % what)
     say('c', 'one step with gather_k %d and %d candidates under '
         'set_sync_debug_mode("error"): S1 covers every candidate (its blocks '
-        'loop), equal to the dense step bit for bit' % (OVERFLOW_ROWS, n))
-
-
-def ptxas_summary(report):
-    ''' registers, shared memory and spills of each kernel entry in an
-        ``nvcc -Xptxas -v`` report, each named by its template arguments
-        (``SP=4``: the depth bytes per read position of nch 4) '''
-    entries = [['file']]
-    for line in report.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            args = re.findall(r'Li(\d+)E', m.group(1))
-            entries.append(['SP=' + ','.join(args) if args else m.group(1)])
-        elif (('registers' in line or 'spill' in line or 'serialized' in line)
-              and 'is injected' not in line):
-            entries[-1].append(line.split('ptxas info    :')[-1].strip())
-    return ' | '.join('%s: %s' % (e[0], '; '.join(e[1:]))
-                      for e in entries if len(e) > 1)
+        'grid does not depend on the count), equal to the dense step bit for '
+        'bit' % (ABOVE_K, n))
 
 
 def run(cmd, env=None, timeout=300, seconds=None, stderr=False):
@@ -1330,7 +1275,7 @@ def hitdiff_phase(engine, tps, by_path, card):
     ``--backend numpy``: every ``findseqs`` hit stream must equal the C
     reference's (``kvarq_tpu_torch/csrc/ref_bench.c``, built with ``cc``:
     no C compiler fails the phase).  After each case on the card,
-    ``countseqs`` with the sieve off (K1, compaction, the overflow fallback)
+    ``countseqs`` with the sieve off (K1, compaction, every candidate scored)
     must equal the numpy backend's.  Records the ``(Lpad, nch, maxerrors,
     minoverlap)`` K1 is given.
     """
@@ -1629,6 +1574,7 @@ def main():
     max_err = int((got - want).abs().max())
     check(max_err == 0, 'K1 differs from cand_counts_ref at the main-path '
           'shape (max abs err %d)' % max_err)
+    from kvarq_tpu_torch.tools.s1_bench import ptxas_summary
     say('b', 'ptxas -v of cand_screen.cu: %s' % ptxas_summary(
         native_cuda.ptxas_report.get('cand_screen.cu', '')))
     # plain (the kernel's plain version), kernel, kernel, plain
@@ -1658,8 +1604,7 @@ def main():
            HBM_TBPS, k1b['bound_by'], 100 * k1b['bound_ms'] / k_ms, card))
     ref_ms = min(ref_ms, ref_ms2)
     k_ms = min(k_ms, k_ms2)
-    s1 = s1_phase(tps, native_cuda, codes, rl, state, got, e, mo, mm_ms,
-                  card)
+    s1 = s1_phase(tps, native_cuda, codes, rl, state, e, mo, mm_ms, card)
 
     rng = np.random.RandomState(5)
     nbank = [''.join(rng.choice(list('ACGTN'), rng.randint(30, 300)))
@@ -1926,7 +1871,9 @@ def main():
         # no PyTorch call computes the scoring; matmul_ms is the fp16
         # product alone, as context
         'library_ms': None, 'matmul_ms': mm_ms,
-        'forms': {k: s1[k] for k in ('dense', 'gathered', 'overflow')}}]}),
+        'split': s1['dense']['split'],
+        'forms': {k: s1[k] for k in ('dense', 'gathered',
+                                     'above_gather_k')}}]}),
         flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

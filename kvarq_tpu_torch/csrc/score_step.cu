@@ -37,32 +37,35 @@
 // ranges, so the grid does not depend on the count and a block rebuilds
 // its reads' one-hot tile only when the row tile changes.
 //
-// - A producer warpgroup (one warp, 40 registers after setmaxnreg)
-//   stages each column group into a ring of two slots with bulk copies
-//   (cp.async.bulk) completed on an mbarrier: the R residue windows of
-//   the precomputed one-hot bank (pallas_scan.s1_onehot: copy s is moved
-//   by s positions, so every window starts on a 16-byte boundary) and the
-//   group's screen terms in stage order (pallas_scan.s1_terms).  One set
-//   of windows serves the group's four stages: the descriptor start
-//   moves by 16 * 128 bytes per span.
+// - A producer warp (40 registers after setmaxnreg) stages each column
+//   group into a ring of two slots with bulk copies (cp.async.bulk)
+//   completed on an mbarrier: the R residue windows of the precomputed
+//   one-hot bank (pallas_scan.s1_onehot: copy s is moved by s positions,
+//   so every window starts on a 16-byte boundary) and the group's screen
+//   terms in stage order (pallas_scan.s1_terms).  One set of windows
+//   serves the group's four stages: the descriptor start moves by 16 *
+//   128 bytes per span.
 // - Two consumer warpgroups (232 registers) each own 64 reads of the row
 //   tile: they build their rows' one-hot tile (kvq_onehot_mma.h's A
-//   layout) in shared memory, and per stage issue the MMAs (wgmma
-//   m64n128k32 s8 -> s32, A and the residue window in shared memory) of
-//   stage i + 1 into the second of two accumulator sets before they
-//   screen and drain stage i: the screen and the drain run while the
-//   tensor cores work.  The screen compares the count plus e with terms
-//   that do not depend on e.
-// - The screen pushes each passing (read, column) pair into its
-//   warpgroup's list in shared memory (room for every pair of a stage);
-//   the drain takes a pair per warp: the match count again from the
-//   codes, mode_weights, seqhits and seqbasehits summed over a warp's run
-//   of pairs of one template before the atomic, and the coverage fold
-//   into a u32 histogram of the stage's bank positions in shared memory,
-//   flushed into basecount with one int64 atomic per non-zero entry of
-//   the positions the pairs touched (deep loci take one atomic per
-//   position, not one per read).  Depths above the A tile's room (1,024
-//   bytes) rebuild it per chunk and stage, with nothing in flight.
+//   layout) in shared memory while the group's copies land, and per
+//   stage issue its MMAs (wgmma m64n128k32 s8 -> s32, A and the residue
+//   window in shared memory: one n128 MMA per k-step and residue reads
+//   the A tile once, where K1's four n32 MMAs read it four times) into
+//   one of two accumulator sets, then screen and drain the previous
+//   stage from the other set while the tensor cores work.
+// - The screen takes two columns per DPX instruction (16-bit halves:
+//   the count minus its threshold, whose terms do not depend on e) and
+//   pushes each passing (read, column) pair into its warpgroup's list in
+//   shared memory (room for every pair of a stage) only in warps that
+//   have one.  The drain takes a pair per warp: the match count again
+//   from the codes and the staged window, mode_weights, seqhits and
+//   seqbasehits summed over a warp's run of pairs of one template before
+//   the atomic, and the coverage fold into a u32 histogram of the
+//   stage's bank positions in shared memory, flushed into basecount with
+//   one int64 atomic per non-zero entry of the positions the pairs
+//   touched (deep loci take one atomic per position, not one per read).
+//   Depths above the A tile's room (1,024 bytes) rebuild it per chunk
+//   and stage, with nothing in flight.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (kvarq_tpu_torch/engine/native_cuda.py).
@@ -86,7 +89,7 @@ constexpr int NCW = 2;           // consumer warpgroups, 64 reads each
 constexpr int NTHREADS = 128 * (NCW + 1);  // and the producer warpgroup
 constexpr int NACC = 64;         // accumulators per thread: m64 n128
 constexpr int LIST_CAP = 64 * 128;         // pairs of a warpgroup's stage
-constexpr int TERM_BYTES = NSTAGE * 128 * 16;   // a group's screen terms
+constexpr int TERM_BYTES = NSTAGE * 64 * 16;    // a group's screen terms
 constexpr int SMEM_MAX = 227 * 1024;
 constexpr int INT_BIG = 0x7FFFFFFF;
 
@@ -246,7 +249,7 @@ struct Args {
     long nb;
     const uint8_t* onehot;     // [R, onb]
     long onb;
-    const int4* sterms;        // [groups * NSTAGE * 128]
+    const uint4* sterms;       // [groups * NSTAGE * 64]
     const int32_t* qmeta;      // [8, Qp]
     const int32_t* tseg;       // [Qp]
     u64* basecount;            // [5, G]
@@ -265,6 +268,14 @@ struct Shared {
     int list_n[NCW][3], lo[NCW][3], hi[NCW][3];
 };
 
+// one stage of the schedule: row tile, column group, stage in the group
+// (k / R: span, k % R: residue), its slot, and its position modulo 3 among
+// the block's stages (the index of its list length and touched columns)
+struct Stage {
+    int rt, g, k, slot, i3;
+    bool release;      // the last stage of its group in the block's range
+};
+
 // a consumer warpgroup's walk over the block's stages [s0, s1)
 template <int SP, bool PROF>
 struct Consumer {
@@ -278,22 +289,21 @@ struct Consumer {
     const uint8_t* slots;
     uint16_t* list;
     uint32_t* hist;
-    long s0, s1, per_rt;
-    int ngroups, n, wg, wtid, warp, lane, g8, t;
+    int s0, s1, ngroups, n, wg, wtid, warp, lane, g8, t;
 
-    int slot = 0, phase = 0;
+    // the next stage to issue, counted without divisions
+    Stage nx = {};
+    int phase = 0;
     // the row tile of the row terms in shared memory, and of A where the
     // depth is one chunk (-1: none)
-    long rows_rt = -1, a_rt = -1;
-    int pslot = 0;               // the slot of the stage last issued
+    int rows_rt = -1, a_rt = -1;
     long long pt[PROF_N] = {};
 
     __device__ __forceinline__ Consumer(const Args& a_, const Layout& l_,
-                                        Shared& sh_, uint8_t* smem, long s0_,
-                                        long s1_, int n_, int ngroups_)
+                                        Shared& sh_, uint8_t* smem, int s0_,
+                                        int s1_, int n_, int ngroups_)
         : a(a_), lay(l_), sh(sh_), As(smem), slots(smem + l_.slot_off),
-          s0(s0_), s1(s1_), per_rt((long)ngroups_ * NSTAGE),
-          ngroups(ngroups_), n(n_)
+          s0(s0_), s1(s1_), ngroups(ngroups_), n(n_)
     {
         const int tid = threadIdx.x;
         wg = tid >> 7;
@@ -305,6 +315,9 @@ struct Consumer {
         list = reinterpret_cast<uint16_t*>(smem + lay.list_off) + wg * LIST_CAP;
         hist = reinterpret_cast<uint32_t*>(smem + lay.hist_off)
             + wg * 5 * lay.hp;
+        nx.rt = s0 / (ngroups * NSTAGE);
+        nx.g = s0 / NSTAGE % ngroups;
+        nx.k = s0 % NSTAGE;
     }
 
     __device__ __forceinline__ long long clk() const
@@ -315,14 +328,14 @@ struct Consumer {
     // the row terms of row tile rt (rows_too: when it changes; two sets,
     // rt % 2, so that the previous row tile's stage can still be finished)
     // and this warpgroup's rows of the A tile for depth chunk ch
-    __device__ __forceinline__ void rebuild(long rt, int ch, bool rows_too)
+    __device__ __forceinline__ void rebuild(int rt, int ch, bool rows_too)
     {
         const long long c0 = clk();
-        const int r0 = 64 * wg, set = (int)(rt & 1);
+        const int r0 = 64 * wg, set = rt & 1;
         if (rows_too) {
             if (wtid < 64) {
                 const int r = r0 + wtid;
-                const long b = rt * TB + r;
+                const long b = (long)rt * TB + r;
                 const int row = b < n ? (a.rows ? a.rows[b] : (int)b) : -1;
                 const int v = row >= 0 ? a.rl[row] : 0;
                 sh.row_id[set][r] = row;
@@ -379,55 +392,74 @@ struct Consumer {
             pt[PROF_BUILD] += clk() - c0;
     }
 
-    // the pairs of stage L (its accumulators acc, its group in slot sl):
-    // screen, drain, and the slot's release after the group's last stage
-    __device__ __forceinline__ void finish(const int (&acc)[NACC], long L,
-                                           int sl)
+    // stage st's pairs, its accumulators in acc: screen, drain, and the
+    // release of its slot after its group's last stage
+    __device__ __forceinline__ void finish(const int (&acc)[NACC],
+                                           const Stage& st)
     {
         long long c0 = clk();
-        const int k = (int)(L % NSTAGE), p = k / R, s = k % R;
-        const int q0 = (int)((L / NSTAGE) % ngroups) * GC + p * SPAN;
-        const int4* terms = reinterpret_cast<const int4*>(
-            slots + sl * lay.slot_bytes + R * lay.win) + k * 128;
-        const int i3 = (int)((L - s0) % 3);
-        const int set = (int)((L / per_rt) & 1);
+        const int p = st.k / R, s = st.k % R;
+        const int q0 = st.g * GC + p * SPAN;
+        const uint8_t* slot = slots + st.slot * lay.slot_bytes;
+        // the terms of MMA columns 2 i and 2 i + 1, their 16-bit halves:
+        // minus (dm, ovc, seql) clamped to +-16383 (pallas_scan.s1_terms)
+        const uint4* terms = reinterpret_cast<const uint4*>(slot + R * lay.win)
+            + st.k * 64;
+        const int set = st.rt & 1;
+        const int e_ = a.maxerrors;
         int rlv[2], rlmo[2];
+        uint32_t nrl2[2], nrlmo2[2];     // minus the row terms, in both halves
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-            rlv[h] = sh.row_rl[set][acc_read(warp, g8, h)];
-            rlmo[h] = sh.row_rlmo[set][acc_read(warp, g8, h)];
+            rlv[h] = min(sh.row_rl[set][acc_read(warp, g8, h)], 16383);
+            rlmo[h] = min(sh.row_rlmo[set][acc_read(warp, g8, h)], 16383);
+            nrl2[h] = (uint32_t)(-rlv[h] & 0xFFFF) * 0x10001u;
+            nrlmo2[h] = (uint32_t)(-rlmo[h] & 0xFFFF) * 0x10001u;
         }
-        // the screen without branches, then the pushes in the warps that
-        // have a passing pair (few: a read hits a template or two); the
-        // count plus e against terms that do not depend on e
-        const int e_ = a.maxerrors;
-        int npass = 0;
+        // the screen without branches, two columns a DPX instruction: the
+        // largest count minus threshold, then the pushes in the warps that
+        // have a passing pair (few: a read hits a template or two).  The
+        // count plus e passes at the threshold max(min(rl + dm, ovc),
+        // min(rlmo, seql)) (pallas_scan.s1_terms)
+        uint32_t run[2] = {0x80008000u, 0x80008000u};
 #pragma unroll
-        for (int j = 0; j < NACC / 4; ++j)
+        for (int j = 0; j < NACC / 4; ++j) {
+            const uint4 tm = terms[4 * j + t];
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-                const int4 tm = terms[8 * j + 2 * t + e];
-#pragma unroll
-                for (int h = 0; h < 2; ++h)
-                    npass += acc[4 * j + 2 * h + e] + e_
-                        >= max(min(rlv[h] + tm.x, tm.y), min(rlmo[h], tm.z));
+            for (int h = 0; h < 2; ++h) {
+                const uint32_t a2 = __byte_perm(acc[4 * j + 2 * h],
+                                                acc[4 * j + 2 * h + 1],
+                                                0x5410);
+                const uint32_t nthr = __viaddmin_s16x2(
+                    __viaddmax_s16x2(nrl2[h], tm.x, tm.y), 0u,
+                    __viaddmax_s16x2(nrlmo2[h], 0u, tm.z));
+                run[h] = __viaddmax_s16x2(a2, nthr, run[h]);
             }
-        if (__any_sync(0xFFFFFFFFu, npass > 0)) {
+        }
+        const uint32_t r2 = __viaddmax_s16x2(run[0], 0u, run[1]);
+        const bool any = (int)(short)(r2 & 0xFFFFu) + e_ >= 0
+            || (int)(short)(r2 >> 16) + e_ >= 0;
+        if (__any_sync(0xFFFFFFFFu, any)) {
             const int rbase = 16 * (warp & 3) + g8;
 #pragma unroll
-            for (int j = 0; j < NACC / 4; ++j)
+            for (int j = 0; j < NACC / 4; ++j) {
+                const uint4 tm = terms[4 * j + t];
 #pragma unroll
                 for (int e = 0; e < 2; ++e) {
+                    const int sh_ = 16 * e;
+                    const int dm = -(int)(short)(tm.x >> sh_);
+                    const int ovc = -(int)(short)(tm.y >> sh_);
+                    const int sq = -(int)(short)(tm.z >> sh_);
                     const int c = 8 * j + 2 * t + e;
-                    const int4 tm = terms[c];
 #pragma unroll
                     for (int h = 0; h < 2; ++h)
                         if (acc[4 * j + 2 * h + e] + e_
-                                >= max(min(rlv[h] + tm.x, tm.y),
-                                       min(rlmo[h], tm.z)))
-                            list[atomicAdd(&sh.list_n[wg][i3], 1)] =
+                                >= max(min(rlv[h] + dm, ovc),
+                                       min(rlmo[h], sq)))
+                            list[atomicAdd(&sh.list_n[wg][st.i3], 1)] =
                                 (uint16_t)(c << 6 | (rbase + 8 * h));
                 }
+            }
         }
         long long c1 = clk();
         if (PROF) {
@@ -436,14 +468,14 @@ struct Consumer {
         }
         wg_sync(wg);     // the list is complete; the terms are read
         // warp-uniform, as the compiler can see
-        const int nl = __shfl_sync(0xFFFFFFFFu, sh.list_n[wg][i3], 0);
+        const int nl = __shfl_sync(0xFFFFFFFFu, sh.list_n[wg][st.i3], 0);
         if (wtid == 0) {
-            const int i = (i3 + 2) % 3;    // stage L + 2's entries
+            const int i = (st.i3 + 2) % 3;    // the stage after next
             sh.list_n[wg][i] = 0;
             sh.lo[wg][i] = INT_BIG;
             sh.hi[wg][i] = -1;
-            if (k == NSTAGE - 1 || L == s1 - 1)
-                mbar_arrive(&sh.empty[sl]);
+            if (st.release && nl == 0)
+                mbar_arrive(&sh.empty[st.slot]);
         }
         if (PROF) {
             c1 = clk();
@@ -452,28 +484,33 @@ struct Consumer {
         }
         if (nl == 0)
             return;
-        drain(nl, q0 + s, q0 - (a.Lpad - 1), i3, set);
+        drain(nl, slot + s * lay.win + SP * p * SPAN, q0 + s,
+              q0 - (a.Lpad - 1), st.i3, set);
         if (PROF) {
             c1 = clk();
             pt[PROF_DRAIN] += c1 - c0;
             c0 = c1;
         }
-        wg_sync(wg);     // the list is read, the histogram complete
+        wg_sync(wg);     // the list and the window are read, the
+                         // histogram is complete
+        if (st.release && wtid == 0)
+            mbar_arrive(&sh.empty[st.slot]);
         if (PROF) {
             c1 = clk();
             pt[PROF_WAIT] += c1 - c0;
             c0 = c1;
         }
         if (lay.hp)
-            flush(q0 - (a.Lpad - 1), i3);
+            flush(q0 - (a.Lpad - 1), st.i3);
         if (PROF)
             pt[PROF_DRAIN] += clk() - c0;
     }
 
     // the listed pairs, one warp per pair; MMA column c is column qs + R c
-    // and its coverage lands on histogram entry g - hbase
-    __device__ __forceinline__ void drain(int nl, int qs, int hbase, int i3,
-                                          int set)
+    // and bank position qs + R c + j is one-hot at byte SP (R c + j) of the
+    // staged window win; its coverage lands on histogram entry g - hbase
+    __device__ __forceinline__ void drain(int nl, const uint8_t* win, int qs,
+                                          int hbase, int i3, int set)
     {
         constexpr uint32_t NCH = SP == 4 ? 4u : 5u;
         const uint8_t* codes = reinterpret_cast<const uint8_t*>(a.codes);
@@ -483,28 +520,32 @@ struct Consumer {
         for (int x = warp & 3; x < nl; x += 4) {
             const int ent = list[x];
             const int r = 64 * wg + (ent & 63);
-            const int q = qs + R * (ent >> 6);
+            const int c = ent >> 6;
+            const int q = qs + R * c;
             const int row = sh.row_id[set][r];
             if (row < 0)
                 continue;    // an empty row passes where seql <= e
+            const int d = a.qmeta[ROW_D * Qp + q];
+            const int seql = a.qmeta[ROW_SEQL * Qp + q];
+            const int valid = a.qmeta[ROW_VALID * Qp + q];
+            const int seg = a.tseg[q];
             const uint8_t* read = codes + (size_t)row * Lpad;
+            const uint8_t* bw = win + SP * R * c;
             int m = 0;
+#pragma unroll 4
             for (int j = lane; j < Lpad; j += 32) {
-                const uint32_t c = read[j];
-                m += c < NCH && c == bank_byte(a.bank, a.nb, (long)q + j);
+                const uint32_t b = read[j];
+                m += b < NCH && bw[SP * j + b] != 0;
             }
 #pragma unroll
             for (int o = 16; o > 0; o >>= 1)
                 m += __shfl_xor_sync(0xFFFFFFFFu, m, o);
             int ov;
-            const int w = mode_weight(
-                m, sh.row_rl[set][r], a.qmeta[ROW_D * Qp + q],
-                a.qmeta[ROW_SEQL * Qp + q], a.qmeta[ROW_VALID * Qp + q],
-                a.maxerrors, a.minoverlap, ov);
+            const int w = mode_weight(m, sh.row_rl[set][r], d, seql, valid,
+                                      a.maxerrors, a.minoverlap, ov);
             if (w == 0)
                 continue;
             if (lane == 0) {
-                const int seg = a.tseg[q];
                 if (seg != run_seg) {
                     if (run_seg >= 0) {
                         atomicAdd(a.seqhits + run_seg, run_w);
@@ -522,15 +563,16 @@ struct Consumer {
             }
             // the diagonal fold: read position j lies on bank position
             // q - (Lpad-1) + j
+#pragma unroll 4
             for (int j = lane; j < Lpad; j += 32) {
-                const uint32_t c = read[j];
+                const uint32_t b = read[j];
                 const int gp = q - (Lpad - 1) + j;
-                if (c < 5u && gp >= 0 && gp < G) {
+                if (b < 5u && gp >= 0 && gp < G) {
                     if (lay.hp)
-                        atomicAdd(hist + c * lay.hp + (gp - hbase),
+                        atomicAdd(hist + b * lay.hp + (gp - hbase),
                                   (uint32_t)w);
                     else
-                        atomicAdd(a.basecount + (size_t)c * G + gp, (u64)w);
+                        atomicAdd(a.basecount + (size_t)b * G + gp, (u64)w);
                 }
             }
         }
@@ -560,6 +602,14 @@ struct Consumer {
         }
     }
 
+    __device__ __forceinline__ void wait_full(int slot)
+    {
+        const long long c0 = clk();
+        mbar_wait(&sh.full[slot], phase);
+        if (PROF)
+            pt[PROF_WAIT] += clk() - c0;
+    }
+
     // the MMAs of depth chunk ch of a stage into cur (from zero when ch is
     // 0: nothing but the MMAs defines an accumulator while the other set's
     // MMAs run, or ptxas serialises them, C7515), and their commit
@@ -582,32 +632,28 @@ struct Consumer {
             pt[PROF_MMA] += clk() - c0;
     }
 
-    // stage L into cur, after waiting for its group; then the previous
-    // stage, in prv, is finished while cur's MMAs run, and the step ends
-    // with nothing in flight.  No MMA group outlives its step and every
-    // branch is warp-uniform: ptxas serialises the MMAs otherwise (C7514,
-    // C7520).  Where A changes (a new row tile; every stage when the depth
-    // takes chunks) it is rebuilt first, the previous stage keeping its
-    // row terms (the other set) for its finish.
+    // stage L (the next stage, nx) into cur, after waiting for its group;
+    // then the previous stage, pv in prv, is finished while cur's MMAs
+    // run, and the step ends with nothing in flight.  No MMA group
+    // outlives its step and every branch is warp-uniform: ptxas serialises
+    // the MMAs otherwise (C7514, C7520).  Where A changes (a new row tile;
+    // every stage when the depth takes chunks) it is rebuilt first, the
+    // previous stage keeping its row terms (the other set) for its finish.
     __device__ __forceinline__ void step(int (&cur)[NACC], int (&prv)[NACC],
-                                         long L)
+                                         int L, Stage& pv)
     {
         const bool first = L == s0;
-        const long rt = L / per_rt;
-        const int k = (int)(L % NSTAGE);
-        if (first || k == 0) {
-            if (!first && ++slot == NSLOT) {
-                slot = 0;
-                phase ^= 1;
-            }
-            const long long c0 = clk();
-            mbar_wait(&sh.full[slot], phase);
-            if (PROF)
-                pt[PROF_WAIT] += clk() - c0;
+        Stage st = nx;
+        if (!first && st.k == 0 && ++st.slot == NSLOT) {
+            st.slot = 0;
+            phase ^= 1;
         }
-        const uint8_t* win = slots + slot * lay.slot_bytes
-            + (k % R) * lay.win + SP * SPAN * (k / R);
-        if (lay.nchunks > 1 || rt != a_rt) {
+        // the group's copies land while A is built
+        const bool wait = first || st.k == 0;
+        st.release = st.k == NSTAGE - 1 || L == s1 - 1;
+        const uint8_t* win = slots + st.slot * lay.slot_bytes
+            + (st.k % R) * lay.win + SP * SPAN * (st.k / R);
+        if (lay.nchunks > 1 || st.rt != a_rt) {
             for (int ch = 0; ch < lay.nchunks; ++ch) {
                 if (ch > 0) {
                     const long long c1 = clk();
@@ -616,21 +662,35 @@ struct Consumer {
                     if (PROF)
                         pt[PROF_MMA] += clk() - c1;
                 }
-                rebuild(rt, ch, ch == 0 && rt != rows_rt);
+                rebuild(st.rt, ch, ch == 0 && st.rt != rows_rt);
+                if (ch == 0 && wait)
+                    wait_full(st.slot);
                 mma(cur, win, ch);
             }
-            rows_rt = a_rt = rt;
+            rows_rt = a_rt = st.rt;
         } else {
+            if (wait)
+                wait_full(st.slot);
             mma(cur, win, 0);
         }
         if (!first)
-            finish(prv, L - 1, pslot);
+            finish(prv, pv);
         const long long c0 = clk();
         wgmma_wait<0>();
         fence_acc(cur);
         if (PROF)
             pt[PROF_MMA] += clk() - c0;
-        pslot = slot;
+        pv = st;
+        // the stage after L
+        nx = st;
+        nx.i3 = st.i3 == 2 ? 0 : st.i3 + 1;
+        if (++nx.k == NSTAGE) {
+            nx.k = 0;
+            if (++nx.g == ngroups) {
+                nx.g = 0;
+                ++nx.rt;
+            }
+        }
     }
 
     __device__ __forceinline__ void run()
@@ -638,15 +698,16 @@ struct Consumer {
         const long long start = clk();
         if (s0 < s1) {
             int acc0[NACC], acc1[NACC];
-            for (long L = s0; L < s1; L += 2) {
-                step(acc0, acc1, L);
+            Stage pv = {};
+            for (int L = s0; L < s1; L += 2) {
+                step(acc0, acc1, L, pv);
                 if (L + 1 < s1)
-                    step(acc1, acc0, L + 1);
+                    step(acc1, acc0, L + 1, pv);
             }
             if ((s1 - 1 - s0) % 2 == 0)
-                finish(acc0, s1 - 1, pslot);
+                finish(acc0, pv);
             else
-                finish(acc1, s1 - 1, pslot);
+                finish(acc1, pv);
         }
         if (PROF && wtid == 0) {
             pt[PROF_TOTAL] = clk() - start;
@@ -674,8 +735,8 @@ score_step_kernel(const __grid_constant__ Args a,
     const int role = __shfl_sync(0xFFFFFFFFu, tid >> 7, 0);
     const int ngroups = (a.Qp + GC - 1) / GC;
     const long total = (long)((n + TB - 1) / TB) * ngroups * NSTAGE;
-    const long s0 = total * blockIdx.x / gridDim.x;
-    const long s1 = total * (blockIdx.x + 1) / gridDim.x;
+    const int s0 = (int)(total * blockIdx.x / gridDim.x);
+    const int s1 = (int)(total * (blockIdx.x + 1) / gridDim.x);
 
     if (tid == 0) {
         for (int i = 0; i < NSLOT; ++i) {
@@ -702,8 +763,8 @@ score_step_kernel(const __grid_constant__ Args a,
         const bool lead = tid == 128 * NCW;
         long long stage = 0, waited = 0;
         int slot = 0, phase = 0;
-        for (long L = s0; L < s1; L = (L / NSTAGE + 1) * NSTAGE) {
-            const int g = (int)((L / NSTAGE) % ngroups);
+        for (int L = s0; L < s1; L = (L / NSTAGE + 1) * NSTAGE) {
+            const int g = L / NSTAGE % ngroups;
             const long long c0 = PROF ? clock64() : 0;
             mbar_wait(&sh.empty[slot], phase ^ 1);
             const long long c1 = PROF ? clock64() : 0;
@@ -715,7 +776,7 @@ score_step_kernel(const __grid_constant__ Args a,
                               a.onehot + s * a.onb + (long)SP * GC * g,
                               lay.win, &sh.full[slot]);
                 bulk_copy(dst + R * lay.win,
-                          a.sterms + (long)g * NSTAGE * 128, TERM_BYTES,
+                          a.sterms + (long)g * NSTAGE * 64, TERM_BYTES,
                           &sh.full[slot]);
             }
             __syncwarp();
@@ -752,7 +813,7 @@ const char* kvq_cuda_src_hash() { return KVQ_SRC_HASH; }
 // B); count: int32 [1] in device memory, the ranks to score (clamped to
 // [0, cap]), or null (all cap); bank: uint8 [4 * nbw] padded bank bytes
 // (pallas_scan._kernel_bytes); onehot: uint8 [16 / SP, onb]
-// (pallas_scan.s1_onehot); sterms: int32 [groups * 512, 4]
+// (pallas_scan.s1_onehot); sterms: int32 [groups * 256, 4]
 // (pallas_scan.s1_terms); qmeta: int32 [8, Qp]; tseg: int32 [Qp];
 // basecount int64 [5, G], seqhits and seqbasehits int64 [T + 1], added
 // to; prof: int64 [8] or null, cycles per phase added to it (PROF_*).
@@ -773,27 +834,43 @@ int kvq_score_step(const void* codes, const void* rl, const void* rows,
         return (int)cudaErrorInvalidValue;
     const int SP = nch == 4 ? 4 : 8;
     const Layout lay = make_layout(SP, Lpad);
-    if (lay.bytes == 0)
+    // the stages are counted in int
+    const long stages = ((long)cap + TB - 1) / TB * ((Qp + GC - 1) / GC)
+        * NSTAGE;
+    if (lay.bytes == 0 || stages > 0x7FFFFFFFL)
         return (int)cudaErrorInvalidValue;
-    int dev = 0, sms = 0;
+    // per device: its SM count, and the dynamic shared memory each
+    // instantiation may use (above the 48 KB default), set once
+    constexpr int MAXDEV = 64;
+    static int sms_of[MAXDEV], smem_of[MAXDEV][4];
+    int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                     dev);
     if (err != cudaSuccess)
         return (int)err;
+    if (dev >= MAXDEV)
+        return (int)cudaErrorInvalidDevice;
+    if (!sms_of[dev]) {
+        err = cudaDeviceGetAttribute(
+            &sms_of[dev], cudaDevAttrMultiProcessorCount, dev);
+        if (err != cudaSuccess)
+            return (int)err;
+    }
+    const int which = (SP == 4 ? 0 : 2) + (prof ? 1 : 0);
     auto kernel = SP == 4
         ? (prof ? score_step_kernel<4, true> : score_step_kernel<4, false>)
         : (prof ? score_step_kernel<8, true> : score_step_kernel<8, false>);
-    // above the 48 KB default: set for the current device at every launch
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
-    if (err != cudaSuccess)
-        return (int)err;
+    if (smem_of[dev][which] < lay.bytes) {
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
+        if (err != cudaSuccess)
+            return (int)err;
+        smem_of[dev][which] = lay.bytes;
+    }
+    const int sms = sms_of[dev];
     Args a = {(const uint32_t*)codes, (const int32_t*)rl,
               (const int32_t*)rows, (const int32_t*)count, cap,
               (const uint8_t*)bank, 4L * nbw, (const uint8_t*)onehot, onb,
-              (const int4*)sterms, (const int32_t*)qmeta,
+              (const uint4*)sterms, (const int32_t*)qmeta,
               (const int32_t*)tseg, (u64*)basecount, (u64*)seqhits,
               (u64*)seqbasehits, Lpad, Qp, G, maxerrors, minoverlap,
               (long long*)prof};

@@ -189,35 +189,53 @@ def s1_onehot(kbytes, nch, Lpad, Qp):
     return np.stack([flat[SP * s:SP * s + nb] for s in range(R)])
 
 
-def s1_terms(qmeta, nch):
-    '''
-    S1's screen terms in its stage order: int32 ``[groups * S1_STAGES *
-    128, 4]``, row ``(g * S1_STAGES + k) * 128 + c`` for the column ``q =
-    g * S1_GROUP + (k // R) * 128 * R + k % R + R * c`` that MMA column
-    ``c`` of stage ``k`` of group ``g`` scores: ``(dm, ovc, seql, 0)`` --
-    qmeta's ``ROW_DM`` and ``ROW_OVC``, the template length where the
-    column is valid (else ``BIG_RL_THRESHOLD``); :py:data:`S1_NEVER`
-    past ``Qp``.  The screen of :py:func:`cand_counts_ref` passes a pair
-    when ``matches + e >= max(min(rl + dm, ovc), min(rlmo, seql))`` with
-    these terms (``rlmo``: ``min(rl, mo)``, ``BIG_RL_THRESHOLD`` for an
-    empty row): the errors ``e`` move to the count's side.
-    '''
+# the screen terms' clamp: the comparisons with a count plus e (at most
+# Lpad + e, far below it) come out as they would unclamped
+S1_TERM_CLAMP = 16383
+
+
+def s1_columns(Qp, nch):
+    ''' the shift column that MMA column ``c`` of stage ``k`` of column
+        group ``g`` scores, in the order ``(g, k, c)``: ``g * S1_GROUP + (k
+        // R) * 128 * R + k % R + R * c`` (R = 16 / SP residues); columns
+        past ``Qp`` are the last group's padding '''
     SP, _ = s1_depth(1, nch)
     R = 16 // SP
-    Qp = qmeta.shape[1]
-    ngroups = -(-Qp // S1_GROUP)
-    g = np.arange(ngroups)[:, None, None]
+    g = np.arange(-(-Qp // S1_GROUP))[:, None, None]
     k = np.arange(S1_STAGES)[None, :, None]
     c = np.arange(128)[None, None, :]
-    q = (g * S1_GROUP + (k // R) * 128 * R + k % R + R * c).reshape(-1)
+    return (g * S1_GROUP + (k // R) * 128 * R + k % R + R * c).reshape(-1)
+
+
+def s1_terms(qmeta, nch):
+    '''
+    S1's screen terms in its stage order: int32 ``[groups * S1_STAGES * 64,
+    4]``, row ``i`` for the columns ``q0, q1`` of MMA columns ``2 i % 128``
+    and ``2 i % 128 + 1`` (:py:func:`s1_columns`): three words of two
+    16-bit halves, minus ``dm``, ``ovc`` and ``seql`` of ``q0`` (low) and
+    ``q1`` (high), each clamped to +-:py:data:`S1_TERM_CLAMP`, and a zero
+    word.  ``dm`` and ``ovc`` are qmeta's ``ROW_DM`` and ``ROW_OVC``,
+    ``seql`` the template length where the column is valid (else
+    ``BIG_RL_THRESHOLD``), all three :py:data:`S1_NEVER` past ``Qp``.  The
+    screen of :py:func:`cand_counts_ref` passes a pair when ``matches + e
+    >= max(min(rl + dm, ovc), min(rlmo, seql))`` with ``rl`` and ``rlmo``
+    (``min(rl, mo)``, ``BIG_RL_THRESHOLD`` for an empty row) clamped alike:
+    the errors move to the count's side, and a threshold at the clamp is
+    one that no count reaches.
+    '''
+    Qp = qmeta.shape[1]
+    q = s1_columns(Qp, nch)
     ok = q < Qp
     qc = np.where(ok, q, 0)
-    out = np.zeros((len(q), 4), dtype=np.int32)
-    out[:, 0] = np.where(ok, qmeta[ROW_DM, qc], S1_NEVER)
-    out[:, 1] = np.where(ok, qmeta[ROW_OVC, qc], S1_NEVER)
-    out[:, 2] = np.where(~ok, S1_NEVER, np.where(
-        qmeta[ROW_VALID, qc] > 0, qmeta[ROW_SEQL, qc], BIG_RL_THRESHOLD))
-    return out
+    terms = np.stack([
+        qmeta[ROW_DM, qc], qmeta[ROW_OVC, qc],
+        np.where(qmeta[ROW_VALID, qc] > 0, qmeta[ROW_SEQL, qc],
+                 BIG_RL_THRESHOLD)], axis=1).astype(np.int64)
+    terms[~ok] = S1_NEVER
+    half = -np.clip(terms, -S1_TERM_CLAMP, S1_TERM_CLAMP) & 0xFFFF
+    out = np.zeros((len(q) // 2, 4), dtype=np.uint32)
+    out[:, :3] = half[0::2] | half[1::2] << 16
+    return out.view(np.int32)
 
 
 def one_hot(codes, nch, dtype):
@@ -467,7 +485,7 @@ def _check_score_args(codes, rl, state, idx, count):
             ('onehot', state.onehot, torch.uint8,
              (16 // SP, SP * S1_GROUP * ngroups + DP)),
             ('sterms', state.sterms, torch.int32,
-             (ngroups * S1_STAGES * 128, 4))]
+             (ngroups * S1_STAGES * 64, 4))]
     if idx is not None:
         args.append(('idx', idx, torch.int32, (min(len(idx), B),)))
     if count is not None:
@@ -527,9 +545,10 @@ def score_candidates(codes, rl, state, maxerrors, minoverlap, idx=None,
                          'int64 tensor of shape (%d,) on %s'
                          % (len(PROFILE_PHASES), codes.device))
     G, T = state.G, state.T
-    bc = torch.zeros(encode.NBASE * G, dtype=torch.int64, device=codes.device)
-    sh = torch.zeros(T + 1, dtype=torch.int64, device=codes.device)
-    sbh = torch.zeros(T + 1, dtype=torch.int64, device=codes.device)
+    # one buffer, one memset
+    out = torch.zeros(encode.NBASE * G + 2 * (T + 1), dtype=torch.int64,
+                      device=codes.device)
+    bc, sh, sbh = out.split([encode.NBASE * G, T + 1, T + 1])
     cap = B if idx is None else len(idx)
     if cap == 0:
         return bc.view(encode.NBASE, G), sh, sbh

@@ -276,32 +276,34 @@ def test_s1_onehot_bank_is_the_moved_one_hot(nch, Lpad):
 @pytest.mark.parametrize('nch', [4, 5])
 @pytest.mark.parametrize('maxerrors,minoverlap', [(0, 25), (2, 25), (3, 8)])
 def test_s1_terms_screen_equals_cand_counts_ref(nch, maxerrors, minoverlap):
-    ''' S1's screen terms in stage order: row (g, k, c) holds column g *
-        S1_GROUP + (k // R) * 128 R + k % R + R c; the screen with the
-        errors on the count's side, over them, passes exactly the pairs of
-        cand_counts_ref '''
+    ''' S1's screen terms in stage order: every shift column once, in the
+        halves of the row of its MMA column pair; the screen with the
+        errors on the count's side, over them and the clamped row terms,
+        passes exactly the pairs of cand_counts_ref '''
     seqs, codes, rl, bank = _case(70 + maxerrors, nch, B=40,
                                   minoverlap=minoverlap, nseq=12)
     state = tps.device_arrays(bank, len(seqs), 'cpu')
-    SP, _ = tps.s1_depth(bank.Lpad, nch)
-    R = 16 // SP
     terms = state.sterms.numpy()
+    q = tps.s1_columns(state.Qp, nch)
     ngroups = -(-state.Qp // tps.S1_GROUP)
-    assert terms.shape == (ngroups * tps.S1_STAGES * 128, 4)
-    g, k, c = np.meshgrid(np.arange(ngroups), np.arange(tps.S1_STAGES),
-                          np.arange(128), indexing='ij')
-    q = (g * tps.S1_GROUP + (k // R) * 128 * R + k % R + R * c).reshape(-1)
+    assert terms.shape == (ngroups * tps.S1_STAGES * 64, 4)
     assert sorted(q[q < state.Qp]) == list(range(state.Qp))
-    assert (terms[q >= state.Qp, :3] == tps.S1_NEVER).all()
-    col = np.full((state.Qp, 3), -1, dtype=np.int64)
-    col[q[q < state.Qp]] = terms[q < state.Qp, :3]
+    halves = terms[:, :3].view(np.uint32)
+    col = np.empty((len(q), 3), dtype=np.int64)
+    col[0::2] = -(halves & 0xFFFF).astype(np.int16)
+    col[1::2] = -(halves >> 16).astype(np.int16)
+    assert not terms[:, 3].any()
+    assert (col[q >= state.Qp] == tps.S1_TERM_CLAMP).all()
+    cq = np.empty((state.Qp, 3), dtype=np.int64)
+    cq[q[q < state.Qp]] = col[q < state.Qp]
     c_, r_ = torch.from_numpy(codes), torch.from_numpy(rl)
     m = tps.match_counts(c_, state.K, nch).long().numpy()
-    rlv = rl.astype(np.int64)[:, None]
-    rlmo = np.where(rlv > 0, np.minimum(rlv, minoverlap),
-                    tps.BIG_RL_THRESHOLD)
-    thr = np.maximum(np.minimum(rlv + col[:, 0], col[:, 1]),
-                     np.minimum(rlmo, col[:, 2]))
+    clamp = tps.S1_TERM_CLAMP
+    rlv = np.minimum(rl.astype(np.int64), clamp)[:, None]
+    rlmo = np.minimum(np.where(rlv > 0, np.minimum(rlv, minoverlap),
+                               tps.BIG_RL_THRESHOLD), clamp)
+    thr = np.maximum(np.minimum(rlv + cq[:, 0], cq[:, 1]),
+                     np.minimum(rlmo, cq[:, 2]))
     got = (m + maxerrors >= thr).sum(axis=1)
     want = tps.cand_counts_ref(c_, r_, state, maxerrors, minoverlap, nch)
     np.testing.assert_array_equal(got, want.numpy())
