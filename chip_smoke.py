@@ -35,13 +35,16 @@ import concurrent.futures
 import faulthandler
 import json
 import os
-import re
 import shutil
 import subprocess
 import sys
 import time
 
 import numpy as np
+
+# with nothing of the repo beside this file, this import fails (exit 1)
+from kvarq_tpu_torch.tools.s1_bench import (HBM_TBPS, INT8_TOPS, cuda_time_ms,
+                                            ptxas_summary, roofline)
 
 HERE = os.path.abspath(os.path.dirname(__file__))
 WORK = os.path.join(HERE, 'build', 'kvarq_tpu_torch', 'smoke')
@@ -114,28 +117,6 @@ def say(phase, msg):
     print('[%s] %s' % (phase, msg), flush=True)
 
 
-def cuda_time_ms(fn, reps=5):
-    ''' median of ``reps`` CUDA-event timings of fn() after one warm-up '''
-    import torch
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
-# the least time of K1's work on an H100 SXM at 700 W (NVIDIA's data sheet,
-# dense): int8 tensor-core operations and HBM bytes
-INT8_TOPS = 1979.0
-HBM_TBPS = 3.35
-
-
 def k1_bound(B, Lpad, state):
     ''' K1's bound at this call: the one-hot product's 2 * B * Lpad * nch
         * Qp int8 operations at the card's int8 peak, or the bytes of its
@@ -145,15 +126,6 @@ def k1_bound(B, Lpad, state):
     nbytes = (B * Lpad + 4 * B + state.bank.numel() + state.qmeta.numel() * 4
               + 4 * B)
     return roofline(ops, nbytes)
-
-
-def roofline(ops, nbytes):
-    ''' the least time of ``ops`` int8 operations and ``nbytes`` bytes on
-        the card: the longer of the two at its peak rates '''
-    t_ops = ops / (INT8_TOPS * 1e12) * 1e3
-    t_bytes = nbytes / (HBM_TBPS * 1e12) * 1e3
-    return dict(ops=ops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
-                bound_by='operations' if t_ops >= t_bytes else 'bytes')
 
 
 def s1_phase(tps, native_cuda, codes, rl, state, e, mo, mm_ms, card):
@@ -172,7 +144,7 @@ def s1_phase(tps, native_cuda, codes, rl, state, e, mo, mm_ms, card):
     :returns: ``{form: s1_bench.measure's entry, 'max_abs_err': 0}``
     '''
     from kvarq_tpu_torch.tools import s1_bench
-    say('b', 'ptxas -v of score_step.cu: %s' % s1_bench.ptxas_summary(
+    say('b', 'ptxas -v of score_step.cu: %s' % ptxas_summary(
         native_cuda.ptxas_report.get('score_step.cu', '')))
     try:
         out = s1_bench.measure(tps, codes, rl, state, e, mo)
@@ -1574,7 +1546,6 @@ def main():
     max_err = int((got - want).abs().max())
     check(max_err == 0, 'K1 differs from cand_counts_ref at the main-path '
           'shape (max abs err %d)' % max_err)
-    from kvarq_tpu_torch.tools.s1_bench import ptxas_summary
     say('b', 'ptxas -v of cand_screen.cu: %s' % ptxas_summary(
         native_cuda.ptxas_report.get('cand_screen.cu', '')))
     # plain (the kernel's plain version), kernel, kernel, plain

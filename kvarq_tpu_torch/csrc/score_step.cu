@@ -756,7 +756,8 @@ score_step_kernel(const __grid_constant__ Args a,
     __syncthreads();
 
     if (role == NCW) {
-        // the producer: one thread stages each group of the block's range
+        // the producer: one warp waits for a free slot, its first thread
+        // stages each group of the block's range into it
         asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
         if (__shfl_sync(0xFFFFFFFFu, tid >> 5, 0) != 4 * NCW)
             return;      // one warp waits, its first thread copies

@@ -7,7 +7,8 @@ the exact scoring of one batch of reads.
   lay out the per-column metadata (copies of kvarq_tpu's numpy helpers);
   :py:func:`device_arrays` / :py:func:`state_from_numpy` build the
   :py:class:`BankState` (im2col'd one-hot bank ``K``, padded bank bytes,
-  ``qmeta``, ``tseg``) from a
+  ``qmeta``, ``tseg``, and S1's staged one-hot bank and screen terms,
+  :py:func:`s1_onehot`, :py:func:`s1_terms`) from a
   :py:class:`~kvarq_tpu_torch.engine.match_xla._Bank` or from the JAX
   package's numpy bank state.
 - :py:func:`cand_counts` is the candidate screen: on a CUDA tensor it
@@ -17,9 +18,9 @@ the exact scoring of one batch of reads.
 - :py:func:`score_candidates` is the exact scoring of a list of rows:
   on a CUDA tensor the hand-written kernel csrc/score_step.cu (S1: the
   match product with a ``mode_weights`` epilogue and the coverage fold,
-  int64 atomics; the device work kvarq_tpu leaves to XLA in
-  ``score_full``), on a CPU tensor its plain version
-  :py:func:`score_candidates_ref`.
+  int64 atomics, one persistent block per SM whatever the count; the
+  device work kvarq_tpu leaves to XLA in ``score_full``), on a CPU
+  tensor its plain version :py:func:`score_candidates_ref`.
 - :py:func:`scan_step_banked` is one device step in dense mode (exact
   scoring of every read) or gathered mode (screen, compaction on the
   device with :py:func:`compact`, exact scoring of every candidate).  On
@@ -120,7 +121,7 @@ class BankState:
     qmeta: torch.Tensor   # int32 [8, Qp] (pack_qmeta rows)
     tseg: torch.Tensor    # int32 [Qp] column -> template, T for gaps
     onehot: torch.Tensor  # uint8 [R, nb] S1's one-hot bank (s1_onehot)
-    sterms: torch.Tensor  # int32 [groups*S1_STAGES*128, 4] (s1_terms)
+    sterms: torch.Tensor  # int32 [groups*S1_STAGES*64, 4] (s1_terms)
 
 
 def _match_dtype(device, Lpad):

@@ -363,6 +363,19 @@ def test_score_kernel_deep_locus(cuda, nch, Lpad):
         assert _score_equal(c, r, state, form) >= 4096
 
 
+@pytest.mark.parametrize('nch', [4, 5])
+def test_score_kernel_long_reads(cuda, nch):
+    ''' reads padded to 1,024: the depth takes several chunks of the A
+        tile, and the stage's coverage histogram does not fit beside it, so
+        the drain adds into basecount directly; dense and gathered '''
+    seqs, state = _state(cuda, 'one tile', 1024, nch)
+    rng = np.random.RandomState(1024 + nch)
+    codes, rl = _planted_reads(rng, seqs, 300, 1024, nch)
+    c, r = torch.from_numpy(codes).to(cuda), torch.from_numpy(rl).to(cuda)
+    for form in ('dense', 'gathered'):
+        assert _score_equal(c, r, state, form, ((2, 10), (3, 8))) > 0
+
+
 def test_score_candidates_rejects_bad_input(cuda):
     seqs, codes, rl, bank = case(1, 4)
     state = tps.device_arrays(bank, len(seqs), cuda)
@@ -378,7 +391,7 @@ def test_score_candidates_rejects_bad_input(cuda):
 
 def test_scan_step_never_waits_on_the_host(cuda):
     ''' under sync debug mode 'error' (any host read of a device value
-        raises): dense, gathered and overflowing steps, then 8 scanner
+        raises): dense, gathered and above-gather_k steps, then 8 scanner
         steps; the flush, outside it, equals the CPU scanner '''
     seqs, codes, rl, bank = case(42, 4, B=96, minoverlap=10)
     state = tps.device_arrays(bank, len(seqs), cuda)
