@@ -52,7 +52,10 @@
 //   window in shared memory: one n128 MMA per k-step and residue reads
 //   the A tile once, where K1's four n32 MMAs read it four times) into
 //   one of two accumulator sets, then screen and drain the previous
-//   stage from the other set while the tensor cores work.
+//   stage from the other set while the tensor cores work.  A warp stalls
+//   on issuing a wgmma while the tensor cores work through the ones
+//   before it, so the two warpgroups take turns at issuing: one issues
+//   while the other screens.
 // - The screen takes two columns per DPX instruction (16-bit halves:
 //   the count minus its threshold, whose terms do not depend on e) and
 //   pushes each passing (read, column) pair into its warpgroup's list in
@@ -193,6 +196,20 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
 __device__ __forceinline__ void wg_sync(int wg)
 {
     asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+}
+
+// the two consumer warpgroups take turns at issuing MMAs (a warp stalls
+// on a wgmma's issue while the tensor cores work through the ones before
+// it, so one warpgroup issues while the other screens): barrier 3 + wg
+// is warpgroup wg's turn, which the other passes to it
+__device__ __forceinline__ void turn_wait(int wg)
+{
+    asm volatile("bar.sync %0, 256;\n" :: "r"(3 + wg) : "memory");
+}
+
+__device__ __forceinline__ void turn_pass(int wg)
+{
+    asm volatile("bar.arrive %0, 256;\n" :: "r"(4 - wg) : "memory");
 }
 
 // d = A (64 x 32) * B (32 x 128) + (acc ? d : 0), both K-major in shared
@@ -616,9 +633,15 @@ struct Consumer {
     __device__ __forceinline__ void mma(int (&cur)[NACC], const uint8_t* win,
                                         int ch)
     {
-        const long long c0 = clk();
+        long long c0 = clk();
         const int ks0 = ch * lay.akc / 2;
         const int nks = min(lay.akc, lay.dp / 16 - ch * lay.akc) / 2;
+        turn_wait(wg);
+        if (PROF) {
+            const long long c1 = clk();
+            pt[PROF_WAIT] += c1 - c0;
+            c0 = c1;
+        }
         fence_acc(cur);
         wgmma_fence();
         for (int ks = 0; ks < nks; ++ks) {
@@ -628,6 +651,7 @@ struct Consumer {
             wgmma_n128(cur, da, db, ch > 0 || ks > 0);
         }
         wgmma_commit();
+        turn_pass(wg);
         if (PROF)
             pt[PROF_MMA] += clk() - c0;
     }
@@ -697,6 +721,8 @@ struct Consumer {
     {
         const long long start = clk();
         if (s0 < s1) {
+            if (wg == 1)
+                turn_pass(1);     // warpgroup 0 issues first
             int acc0[NACC], acc1[NACC];
             Stage pv = {};
             for (int L = s0; L < s1; L += 2) {
@@ -708,6 +734,8 @@ struct Consumer {
                 finish(acc0, pv);
             else
                 finish(acc1, pv);
+            if (wg == 0)
+                turn_wait(0);     // warpgroup 1's last pass
         }
         if (PROF && wtid == 0) {
             pt[PROF_TOTAL] = clk() - start;
