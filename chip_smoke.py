@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 '''
 Smoke run of kvarq_tpu_torch on one NVIDIA GPU: builds the CUDA kernels
-(the candidate screen K1 and the exact scoring S1, one nvcc each, at the
-same time) from this checkout, checks each against its plain PyTorch
-version at the main-path shapes (S1 dense, gathered and above gather_k,
-with its phase split),
+(the candidate screen K1, and the exact scoring S1 with the hit
+extraction H1 in one source: one nvcc each, at the same time) from this
+checkout, checks each against its plain PyTorch version at the main-path
+shapes (S1 dense, gathered and above gather_k, with its phase split; H1
+dense and gathered as sorted triplet sets),
 drives ``kvarq scan``'s coverage path (``countseqs``)
 and its hit-list path (``findseqs``, ``scan -H/-x``) over the 2M-read
 bench corpus with and without the k-mer sieve and over a hit-dense
@@ -90,15 +91,20 @@ class SmokeFailure(Exception):
 
 # the sources of the port's kernels, built at the same time in (a)
 KERNEL_SOURCES = ['cand_screen.cu', 'score_step.cu']
-# S1's launches per path (``by_path`` holds K1's); the coverage paths score
-# through S1, the hit paths do not
+# S1's and H1's launches per path (``by_path`` holds K1's); the coverage
+# paths score through S1, the hit paths extract through H1
 S1_BY_PATH = {}
+H1_BY_PATH = {}
+# a hit cell's peak device memory must stay below this (bytes): H1 holds
+# nothing of size [B, Qp]
+HIT_PEAK_LIMIT = 1e9
 
 
 def zero_launches(tps):
     ''' every kernel's launch count to 0, just before a path is driven '''
     tps.cand_counts.launches = 0
     tps.score_candidates.launches = 0
+    tps.hit_triplets.launches = 0
 
 
 def stamp(stamps, phase):
@@ -159,6 +165,32 @@ def s1_phase(tps, native_cuda, codes, rl, state, e, mo, mm_ms, card):
             'torch.matmul of the dense product alone %.3f ms (context); %s'
             % (s1_bench.describe(form, r), mm_ms, card))
     out['max_abs_err'] = 0
+    return out
+
+
+def h1_phase(tps, codes, rl, state, e, mo, mm_ms, n_cand, card):
+    '''
+    phase (b), H1 on the main-path batch against its plain version
+    (``hit_triplets_ref``), exactly, as sorted triplet sets
+    (``tools/s1_bench.py`` ``measure_hits``): ``dense`` (every read) and
+    ``gathered`` (the reads K1 flags, compacted on the card: the hit
+    path's step), timed with CUDA events, median of 5, in turns plain,
+    kernel, kernel, plain, and under the profiler, beside its bound.
+
+    :returns: ``{form: measure_hits' entry}``
+    '''
+    from kvarq_tpu_torch.tools import s1_bench
+    try:
+        out = s1_bench.measure_hits(tps, codes, rl, state, e, mo)
+    except AssertionError as err:
+        raise SmokeFailure('%s at the main-path shape' % err)
+    check(out['gathered']['rows'] == n_cand, 'H1 gathered %d rows, K1 flags '
+          '%d' % (out['gathered']['rows'], n_cand))
+    for form, r in out.items():
+        check(r['triplets'] > 0, 'H1 %s: no triplets' % form)
+        say('b', 'H1 == hit_triplets_ref exactly (sorted triplet sets), %s; '
+            'the fp16 torch.matmul of the dense product alone %.3f ms '
+            '(context); %s' % (s1_bench.describe_hits(form, r), mm_ms, card))
     return out
 
 
@@ -388,8 +420,8 @@ def corpus(seqs_windows, n_reads=N_READS, plant=None):
 
 def traced_scan(scan, path, seqs):
     ''' one scan (``countseqs`` or ``findseqs``) under torch.profiler:
-        (wall s, kernel s on the card, K1 s, S1 s, [(kernel, ms)] of the
-        five longest) '''
+        (wall s, kernel s on the card, K1 s, S1 s, H1 s, [(kernel, ms)] of
+        the five longest) '''
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -403,10 +435,12 @@ def traced_scan(scan, path, seqs):
                   if e.device_type == DeviceType.CUDA),
                  key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in dev) / 1e6
-    k1, s1 = (sum(e.self_device_time_total for e in dev if name in e.key)
-              / 1e6 for name in ('cand_screen_kernel', 'score_step_kernel'))
-    return wall, busy, k1, s1, [(e.key[:48], e.self_device_time_total / 1e3)
-                                for e in dev[:5]]
+    k1, s1, h1 = (sum(e.self_device_time_total for e in dev
+                      if name in e.key) / 1e6
+                  for name in ('cand_screen_kernel', 'score_step_kernel',
+                               'hit_extract_kernel'))
+    return wall, busy, k1, s1, h1, [
+        (e.key[:48], e.self_device_time_total / 1e3) for e in dev[:5]]
 
 
 def oracle_gate(ret, prefix, seqs, found):
@@ -762,16 +796,20 @@ def scale_out(engine, tps, seqs, path, results, hit_off, by_path):
     check(int(made[0].launches.sum()) == n and (made[0].launches > 0).all(),
           'findseqs on %s: K1 launches per entry %s, by the wrapper %d'
           % (mesh, made[0].launches.tolist(), n))
+    check(tps.hit_triplets.launches > 0, 'findseqs on %s never launched H1'
+          % mesh)
     by_path['findseqs mesh=1x2 sieve=off'] = n
+    H1_BY_PATH['findseqs mesh=1x2 sieve=off'] = tps.hit_triplets.launches
     check(got == hit_off, 'findseqs on %s: the hit stream (hits, hitseqs, '
           'stats) differs from the single-device one of (g)' % mesh)
     say('h', 'findseqs sieve=off on %s: %d reads in %.3fs = %.1f reads/s, '
         '%d hits; matcher %.3fs, _emit %.3fs; peak device memory %.2f GB, '
-        'K1 launches per entry %s; the hit stream equals (g) tuple for tuple'
-        % (mesh, got['stats']['records_parsed'], dt,
-           got['stats']['records_parsed'] / dt, len(got['hits']), t_match,
-           t_emit, torch.cuda.max_memory_allocated() / 1e9,
-           made[0].launches.tolist()))
+        'K1 launches per entry %s, H1 launches %d; the hit stream equals (g) '
+        'tuple for tuple' % (
+            mesh, got['stats']['records_parsed'], dt,
+            got['stats']['records_parsed'] / dt, len(got['hits']), t_match,
+            t_emit, torch.cuda.max_memory_allocated() / 1e9,
+            made[0].launches.tolist(), tps.hit_triplets.launches))
     engine.config(mesh='')
     del got, made
 
@@ -951,7 +989,10 @@ def gui_phase(engine, tps, path, seqs, hit_off, by_path, card):
             gui, an, wall, n, _ = gui_scan(faketk, engine, tps, path, suites,
                                            registry)
             check(n > 0, 'the GUI scan never launched K1')
+            check(tps.hit_triplets.launches > 0, 'the GUI scan never '
+                  'launched H1')
             by_path['gui findseqs'] = n
+            H1_BY_PATH['gui findseqs'] = tps.hit_triplets.launches
             nrec = an.stats['records_parsed']
             check(nrec == N_READS, 'the GUI scan parsed %d of %d records'
                   % (nrec, N_READS))
@@ -998,6 +1039,7 @@ def gui_phase(engine, tps, path, seqs, hit_off, by_path, card):
             gui, an, wall, n, at = gui_scan(faketk, engine, tps, path,
                                             suites, registry, stop=True)
             by_path['gui findseqs stopped'] = n
+            H1_BY_PATH['gui findseqs stopped'] = tps.hit_triplets.launches
             nrec = an.stats['records_parsed']
             check(at is not None and nrec < N_READS, 'the stopped GUI scan '
                   'parsed %d of %d records' % (nrec, N_READS))
@@ -1014,6 +1056,7 @@ def gui_phase(engine, tps, path, seqs, hit_off, by_path, card):
             gui, an, wall, n, _ = gui_scan(faketk, engine, tps, fq, suites,
                                            registry)
             by_path['gui findseqs fixture'] = n
+            H1_BY_PATH['gui findseqs fixture'] = tps.hit_triplets.launches
             data = gui_save(faketk, gui, os.path.join(gdir, name + '.json'))
             ref = json.load(open(os.path.join(WORK, name + '.ref.json')))
             for key in ('coverages', 'analyses', 'stats'):
@@ -1291,12 +1334,13 @@ def hitdiff_phase(engine, tps, by_path, card):
     # the wrapper counts its launches on the name it is called by (its
     # module's ``cand_counts``): the recorder holds the count meanwhile
     results = {}
+    h1 = {}
     recorded.launches = screen.launches
     tps.cand_counts = recorded
     progress = os.path.join(wdir, 'progress.txt')
     try:
         for backend in ('device', 'numpy'):
-            n0 = recorded.launches
+            n0, h0 = recorded.launches, tps.hit_triplets.launches
             t0 = time.time()
             total = ncases = 0
             for case in hitdiff.cases(wdir):
@@ -1315,6 +1359,7 @@ def hitdiff_phase(engine, tps, by_path, card):
                     countseqs_check(case)
             results[backend] = (total, ncases, time.time() - t0,
                                 recorded.launches - n0)
+            h1[backend] = tps.hit_triplets.launches - h0
     finally:
         screen.launches = recorded.launches
         tps.cand_counts = screen
@@ -1322,6 +1367,8 @@ def hitdiff_phase(engine, tps, by_path, card):
     total, ncases, dt, n = results['device']
     n -= cov['launches']
     check(n > 0, 'hitdiff on the card never launched K1')
+    check(h1['device'] >= n and h1['numpy'] == 0, 'hitdiff: H1 launches %r, '
+          'K1 %d on the card' % (h1, n))
     check(results['numpy'][:2] == (total, ncases) and results['numpy'][3] == 0,
           'hitdiff --backend numpy compared %r, the card %r'
           % (results['numpy'][:2], (total, ncases)))
@@ -1332,15 +1379,17 @@ def hitdiff_phase(engine, tps, by_path, card):
           'K1 was not given every nch, maxerrors and minoverlap of the sweep: '
           '%s' % sorted(seen))
     by_path['hitdiff findseqs'] = n
+    H1_BY_PATH['hitdiff findseqs'] = h1['device']
     by_path['hitdiff countseqs sieve=off'] = cov['launches']
     S1_BY_PATH['hitdiff countseqs sieve=off'] = cov['scored']
     check(cov['scored'] > 0, 'the hitdiff countseqs checks never launched S1')
     say('k', 'hitdiff --device cuda (full sweep): %d hits in %d cases equal '
         'ref_bench.c\'s tuple for tuple, %.1fs (the countseqs checks '
-        'included); K1 launches %d on the hit path; countseqs sieve=off on '
-        'the card equals the numpy backend in all %d cases (K1 launches %d, '
-        'S1 launches %d)' % (total, ncases, dt, n, cov['cases'],
-                             cov['launches'], cov['scored']))
+        'included); K1 launches %d and H1 launches %d on the hit path; '
+        'countseqs sieve=off on the card equals the numpy backend in all %d '
+        'cases (K1 launches %d, S1 launches %d)' % (
+            total, ncases, dt, n, h1['device'], cov['cases'],
+            cov['launches'], cov['scored']))
     say('k', 'K1 was given (Lpad, nch, maxerrors, minoverlap) x launches: %s'
         % ', '.join('(%d, %d, %d, %d) x %d' % (k + (v,))
                     for k, v in sorted(shapes.items())))
@@ -1576,6 +1625,8 @@ def main():
     ref_ms = min(ref_ms, ref_ms2)
     k_ms = min(k_ms, k_ms2)
     s1 = s1_phase(tps, native_cuda, codes, rl, state, e, mo, mm_ms, card)
+    h1 = h1_phase(tps, codes, rl, state, e, mo, mm_ms, int((want > 0).sum()),
+                  card)
 
     rng = np.random.RandomState(5)
     nbank = [''.join(rng.choice(list('ACGTN'), rng.randint(30, 300)))
@@ -1606,6 +1657,19 @@ def main():
                                                     5)),
                cuda_time_ms(lambda: tps.cand_counts_ref(c5, r5, state5, e5,
                                                         mo5, 5))))
+        idx5, n5 = tps.compact(got5 > 0)
+        for form, args in (('dense', ()), ('gathered', (idx5, n5))):
+            want5, k5 = tps.triplets_to_host(*tps.hit_triplets_ref(
+                c5, r5, state5, e5, mo5, *args, cap=None))
+            got5t, g5 = tps.triplets_to_host(*tps.hit_triplets(
+                c5, r5, state5, e5, mo5, *args, cap=max(1, k5)))
+            check(g5 == k5 > 0 and np.array_equal(
+                got5t[np.lexsort(got5t.T[::-1])],
+                want5[np.lexsort(want5.T[::-1])]),
+                'H1 differs from hit_triplets_ref on the 5-channel bank '
+                '(%s, e=%d: %d triplets against %d)' % (form, e5, g5, k5))
+            say('b', 'H1 == hit_triplets_ref exactly on the 5-channel bank '
+                '(%s, e=%d, mo=%d, %d triplets)' % (form, e5, mo5, k5))
     from kvarq_tpu_torch import parallel
     sbank5 = parallel.ShardBank(nbank, 128, 2, 10)
     check(sbank5.nch == 5, '5-channel shard bank expected')
@@ -1709,7 +1773,8 @@ def main():
     # wall time includes the profiler's own cost)
     for sieve in ('off', 'auto'):
         engine.config(device='cuda', sieve=sieve, **SCAN)
-        wall, busy, k1, s1t, top = traced_scan(engine.countseqs, path, seqs)
+        wall, busy, k1, s1t, _, top = traced_scan(engine.countseqs, path,
+                                                  seqs)
         if busy == 0:
             say('trace', 'sieve=%s: wall %.3fs; kernel time not measured '
                 '(the profiler saw no device activity)' % (sieve, wall))
@@ -1729,17 +1794,25 @@ def main():
         engine.config(device='cuda', sieve=sieve, **SCAN)
         zero_launches(tps)
         got, dt, t_match, t_emit = timed_findseqs(engine, path, seqs)
-        n = tps.cand_counts.launches
-        check(n > 0, 'findseqs sieve=%s never launched K1' % sieve)
-        by_path['findseqs sieve=%s' % ('on' if sieve == 'auto' else 'off')] = n
+        n, nh = tps.cand_counts.launches, tps.hit_triplets.launches
+        on = 'on' if sieve == 'auto' else 'off'
+        check(n > 0, 'findseqs sieve=%s never launched K1' % on)
+        check(nh >= n, 'findseqs sieve=%s: H1 launches %d, K1 %d (one each '
+              'per batch, and a rerun after an overflow)' % (on, nh, n))
+        by_path['findseqs sieve=%s' % on] = n
+        H1_BY_PATH['findseqs sieve=%s' % on] = nh
+        peak_hits = torch.cuda.max_memory_allocated()
+        check(peak_hits < HIT_PEAK_LIMIT, 'findseqs sieve=%s: peak device '
+              'memory %.2f GB, above %.2f GB' % (on, peak_hits / 1e9,
+                                                 HIT_PEAK_LIMIT / 1e9))
         nrec = got['stats']['records_parsed']
         check(nrec == N_READS, 'parsed %d of %d records' % (nrec, N_READS))
         hit[sieve] = got
         say('g', 'findseqs sieve=%s: %d reads in %.3fs = %.1f reads/s, %d '
-            'hits; matcher %.3fs, _emit %.3fs; peak device memory %.2f GB, '
-            'K1 launches %d' % (
-                sieve, nrec, dt, nrec / dt, len(got['hits']), t_match,
-                t_emit, torch.cuda.max_memory_allocated() / 1e9, n))
+            'hits; matcher %.3fs, _emit %.3fs; this cell\'s peak device '
+            'memory %.3f GB; K1 launches %d, H1 launches %d; %s' % (
+                on, nrec, dt, nrec / dt, len(got['hits']), t_match,
+                t_emit, peak_hits / 1e9, n, nh, card))
     check(hit['off'] == hit['auto'], 'findseqs sieve on/off hit streams '
           '(hits, hitseqs, stats) differ')
     check(len(hit['off']['hits']) > 0, 'no hits in corpus')
@@ -1753,10 +1826,10 @@ def main():
         '8192 reads both equal the numpy oracle tuple for tuple (%d hits)'
         % (len(hit['off']['hits']), len(found['hits'])))
     engine.config(device='cuda', sieve='off', **SCAN)
-    wall, busy, k1, _, top = traced_scan(engine.findseqs, path, seqs)
+    wall, busy, k1, _, h1t, top = traced_scan(engine.findseqs, path, seqs)
     say('trace', 'findseqs sieve=off: wall %.3fs, kernel time on the card '
-        '%.3fs (%.1f%% busy), K1 %.3fs; longest: %s' % (
-            wall, busy, 100 * busy / wall, k1,
+        '%.3fs (%.1f%% busy), K1 %.3fs, H1 %.3fs; longest: %s' % (
+            wall, busy, 100 * busy / max(wall, 1e-9), k1, h1t,
             '; '.join('%s %.1f ms' % kv for kv in top)))
     hit_off = hit['off']        # (h) and (i) hold the mesh and GUI to it
     del hit
@@ -1769,18 +1842,26 @@ def main():
         os.path.basename(dpath), time.time() - t0))
     engine.config(device='cuda', sieve='off', **SCAN)
     zero_launches(tps)
-    got, dt, t_match, t_emit = timed_findseqs(engine, dpath, seqs)
-    n = tps.cand_counts.launches
-    check(n > 0, 'hit-dense findseqs never launched K1')
+    made = []
+    got, dt, t_match, t_emit = timed_findseqs(engine, dpath, seqs, made)
+    n, nh = tps.cand_counts.launches, tps.hit_triplets.launches
+    check(n > 0 and nh >= n, 'hit-dense findseqs: K1 launches %d, H1 %d'
+          % (n, nh))
     by_path['findseqs hit-dense sieve=off'] = n
+    H1_BY_PATH['findseqs hit-dense sieve=off'] = nh
+    peak_hits = torch.cuda.max_memory_allocated()
+    check(peak_hits < HIT_PEAK_LIMIT, 'hit-dense findseqs: peak device '
+          'memory %.2f GB, above %.2f GB' % (peak_hits / 1e9,
+                                             HIT_PEAK_LIMIT / 1e9))
     nrec = got['stats']['records_parsed']
     check(nrec == DENSE_READS, 'parsed %d of %d hit-dense records'
           % (nrec, DENSE_READS))
     say("g'", 'findseqs hit-dense sieve=off: %d reads in %.3fs = %.1f '
-        'reads/s, %d hits; matcher %.3fs, _emit %.3fs; peak device memory '
-        '%.2f GB, K1 launches %d' % (
-            nrec, dt, nrec / dt, len(got['hits']), t_match, t_emit,
-            torch.cuda.max_memory_allocated() / 1e9, n))
+        'reads/s, %d hits; matcher %.3fs, _emit %.3fs; this cell\'s peak '
+        'device memory %.3f GB; K1 launches %d, H1 launches %d (reruns '
+        'after an overflow included; the triplet capacity ends at %d); %s'
+        % (nrec, dt, nrec / dt, len(got['hits']), t_match, t_emit,
+           peak_hits / 1e9, n, nh, made[0].xla.cap, card))
     hits_gate(got, engine.countseqs(dpath, seqs), seqs, 'hit-dense corpus')
     want = numpy_oracle(engine, dprefix, seqs)
     check(engine.findseqs(dprefix, seqs) == want, 'hit-dense findseqs differs '
@@ -1844,7 +1925,22 @@ def main():
         'library_ms': None, 'matmul_ms': mm_ms,
         'split': s1['dense']['split'],
         'forms': {k: s1[k] for k in ('dense', 'gathered',
-                                     'above_gather_k')}}]}),
+                                     'above_gather_k')}}, {
+        'name': 'hit_extract', 'route': 'cuda',
+        'source': 'kvarq_tpu_torch/csrc/score_step.cu',
+        # not a TPU kernel: the hit extraction kvarq_tpu leaves to XLA
+        # (match_xla._jit_step; _jit_rows at :190)
+        'replaces': 'kvarq_tpu/engine/match_xla.py:122',
+        'launches': H1_BY_PATH['findseqs sieve=off'],
+        'launches_by_path': H1_BY_PATH,
+        'max_abs_err': h1['gathered']['max_abs_err'],
+        'ms': h1['gathered']['ms'], 'plain_ms': h1['gathered']['plain_ms'],
+        'bound_ms': h1['gathered']['bound_ms'],
+        'bound_by': h1['gathered']['bound_by'],
+        # no single PyTorch call computes the extraction; matmul_ms is the
+        # fp16 dense product alone, as context
+        'library_ms': None, 'matmul_ms': mm_ms,
+        'forms': h1}]}),
         flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

@@ -24,8 +24,9 @@ The device code:
 
 - :py:mod:`kvarq_tpu_torch.device` -- explicit device selection
 - :py:mod:`kvarq_tpu_torch.engine.pallas_scan` -- bank tensors, the
-  candidate-screen kernel ``cand_counts`` (csrc/cand_screen.cu) and the
-  exact scan step
+  candidate-screen kernel ``cand_counts`` (csrc/cand_screen.cu), the
+  exact scan step and the exact hit extraction ``hit_triplets``
+  (csrc/score_step.cu)
 - :py:mod:`kvarq_tpu_torch.engine.tensor_scan` -- ``mode_weights`` and the
   accumulating :py:class:`TensorScanner`
 - :py:mod:`kvarq_tpu_torch.engine.match_xla` /

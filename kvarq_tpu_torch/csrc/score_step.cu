@@ -70,6 +70,19 @@
 //   Depths above the A tile's room (1,024 bytes) rebuild it per chunk
 //   and stage, with nothing in flight.
 //
+// H1, the exact hit extraction (kvq_hit_extract): the same kernel with a
+// drain chosen at compile time.  It is the device work of kvarq_tpu's hit
+// matcher, match_xla._jit_step (kvarq_tpu/engine/match_xla.py:122-188:
+// the GEMM, mode_weights, the packed windows) and _jit_rows, which XLA
+// runs there.  For every listed pair the drain recomputes the count as
+// S1's does, applies mode_weights and, where w > 0, takes a slot of the
+// triplet buffer with an atomicAdd on a device counter and writes
+// (row_ids[row], tseg[q], qmeta[ROW_D, q]) there while the slot is below
+// its capacity; the counter always ends at the number of triplets.  No
+// histogram, no seqhits, no coverage: the shared memory of the histograms
+// is not laid out.  Nothing of size [B, Qp] is written here either: the
+// buffer holds the triplets alone.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (kvarq_tpu_torch/engine/native_cuda.py).
 
@@ -118,7 +131,7 @@ struct Layout {
     int slot_off, slot_bytes, list_off, hist_off, bytes;
 };
 
-Layout make_layout(int SP, int Lpad)
+Layout make_layout(int SP, int Lpad, bool hist_ok)
 {
     Layout L = {};
     const int R = 16 / SP;
@@ -127,7 +140,7 @@ Layout make_layout(int SP, int Lpad)
     L.slot_bytes = R * L.win + TERM_BYTES;
     const int kcols = L.dp / 16;
     for (int amax = 64; amax >= 16; amax /= 2) {
-        for (int hist = 1; hist >= 0; --hist) {
+        for (int hist = hist_ok ? 1 : 0; hist >= 0; --hist) {
             L.akc = kcols < amax ? kcols : amax;
             L.nchunks = (kcols + L.akc - 1) / L.akc;
             L.hp = hist ? (128 * R + Lpad + 3) / 4 * 4 : 0;
@@ -274,6 +287,12 @@ struct Args {
     u64* seqbasehits;          // [T + 1]
     int Lpad, Qp, G, maxerrors, minoverlap;
     long long* prof;           // [PROF_N] or null
+    // H1: the triplet buffer [outcap, 3], its counter, the batch row ->
+    // reported id map [B] or null
+    int32_t* out;
+    int32_t* nout;
+    int outcap;
+    const int32_t* row_ids;
 };
 
 // the block's shared state besides the dynamic buffers
@@ -293,8 +312,9 @@ struct Stage {
     bool release;      // the last stage of its group in the block's range
 };
 
-// a consumer warpgroup's walk over the block's stages [s0, s1)
-template <int SP, bool PROF>
+// a consumer warpgroup's walk over the block's stages [s0, s1); HIT: H1's
+// drain (triplets) in place of S1's (sums and coverage)
+template <int SP, bool PROF, bool HIT>
 struct Consumer {
     static constexpr int R = 16 / SP;
     static constexpr int SPAN = 128 * R;
@@ -562,6 +582,18 @@ struct Consumer {
                                       a.maxerrors, a.minoverlap, ov);
             if (w == 0)
                 continue;
+            if constexpr (HIT) {
+                if (lane == 0) {
+                    const int k = atomicAdd(a.nout, 1);
+                    if (k < a.outcap) {
+                        int32_t* o = a.out + 3 * (size_t)k;
+                        o[0] = a.row_ids ? a.row_ids[row] : row;
+                        o[1] = seg;
+                        o[2] = d;
+                    }
+                }
+                continue;
+            }
             if (lane == 0) {
                 if (seg != run_seg) {
                     if (run_seg >= 0) {
@@ -593,7 +625,7 @@ struct Consumer {
                 }
             }
         }
-        if (lane == 0 && run_seg >= 0) {
+        if (!HIT && lane == 0 && run_seg >= 0) {
             atomicAdd(a.seqhits + run_seg, run_w);
             atomicAdd(a.seqbasehits + run_seg, run_b);
         }
@@ -745,14 +777,12 @@ struct Consumer {
     }
 };
 
-template <int SP, bool PROF>
-__global__ void __launch_bounds__(NTHREADS, 1)
-score_step_kernel(const __grid_constant__ Args a,
-                  const __grid_constant__ Layout lay)
+// one block's walk: the producer warp or a consumer warpgroup
+template <int SP, bool PROF, bool HIT>
+__device__ __forceinline__ void block_run(const Args& a, const Layout& lay,
+                                          uint8_t* smem, Shared& sh)
 {
     constexpr int R = 16 / SP;
-    extern __shared__ __align__(128) uint8_t smem[];
-    __shared__ Shared sh;
     const int tid = threadIdx.x;
     // ranks at or past the count are never read; the count, the range and
     // the role are warp-uniform, as the compiler can see (a branch it
@@ -826,9 +856,72 @@ score_step_kernel(const __grid_constant__ Args a,
         }
     } else {
         asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-        Consumer<SP, PROF> c(a, lay, sh, smem, s0, s1, n, ngroups);
+        Consumer<SP, PROF, HIT> c(a, lay, sh, smem, s0, s1, n, ngroups);
         c.run();
     }
+}
+
+// S1
+template <int SP, bool PROF>
+__global__ void __launch_bounds__(NTHREADS, 1)
+score_step_kernel(const __grid_constant__ Args a,
+                  const __grid_constant__ Layout lay)
+{
+    extern __shared__ __align__(128) uint8_t smem[];
+    __shared__ Shared sh;
+    block_run<SP, PROF, false>(a, lay, smem, sh);
+}
+
+// H1
+template <int SP>
+__global__ void __launch_bounds__(NTHREADS, 1)
+hit_extract_kernel(const __grid_constant__ Args a,
+                   const __grid_constant__ Layout lay)
+{
+    extern __shared__ __align__(128) uint8_t smem[];
+    __shared__ Shared sh;
+    block_run<SP, false, true>(a, lay, smem, sh);
+}
+
+typedef void (*Kernel)(Args, Layout);
+
+// launch one of the kernels on one block per SM of the current device, a
+// persistent grid; the arguments' own checks are the callers'.  Returns
+// the CUDA error code of the launch.
+int launch(Kernel kernel, int which, const Args& a, int SP, int cap,
+           bool hist, void* stream)
+{
+    const Layout lay = make_layout(SP, a.Lpad, hist);
+    // the stages are counted in int
+    const long stages = ((long)cap + TB - 1) / TB * ((a.Qp + GC - 1) / GC)
+        * NSTAGE;
+    if (lay.bytes == 0 || stages > 0x7FFFFFFFL)
+        return (int)cudaErrorInvalidValue;
+    // per device: its SM count, and the dynamic shared memory each
+    // instantiation may use (above the 48 KB default), set once
+    constexpr int MAXDEV = 64, NKERNEL = 6;
+    static int sms_of[MAXDEV], smem_of[MAXDEV][NKERNEL];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess)
+        return (int)err;
+    if (dev >= MAXDEV)
+        return (int)cudaErrorInvalidDevice;
+    if (!sms_of[dev]) {
+        err = cudaDeviceGetAttribute(
+            &sms_of[dev], cudaDevAttrMultiProcessorCount, dev);
+        if (err != cudaSuccess)
+            return (int)err;
+    }
+    if (smem_of[dev][which] < lay.bytes) {
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
+        if (err != cudaSuccess)
+            return (int)err;
+        smem_of[dev][which] = lay.bytes;
+    }
+    kernel<<<sms_of[dev], NTHREADS, lay.bytes, (cudaStream_t)stream>>>(a, lay);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -862,49 +955,48 @@ int kvq_score_step(const void* codes, const void* rl, const void* rows,
     if (Lpad <= 0 || Lpad % 4 || (nch != 4 && nch != 5))
         return (int)cudaErrorInvalidValue;
     const int SP = nch == 4 ? 4 : 8;
-    const Layout lay = make_layout(SP, Lpad);
-    // the stages are counted in int
-    const long stages = ((long)cap + TB - 1) / TB * ((Qp + GC - 1) / GC)
-        * NSTAGE;
-    if (lay.bytes == 0 || stages > 0x7FFFFFFFL)
-        return (int)cudaErrorInvalidValue;
-    // per device: its SM count, and the dynamic shared memory each
-    // instantiation may use (above the 48 KB default), set once
-    constexpr int MAXDEV = 64;
-    static int sms_of[MAXDEV], smem_of[MAXDEV][4];
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess)
-        return (int)err;
-    if (dev >= MAXDEV)
-        return (int)cudaErrorInvalidDevice;
-    if (!sms_of[dev]) {
-        err = cudaDeviceGetAttribute(
-            &sms_of[dev], cudaDevAttrMultiProcessorCount, dev);
-        if (err != cudaSuccess)
-            return (int)err;
-    }
     const int which = (SP == 4 ? 0 : 2) + (prof ? 1 : 0);
-    auto kernel = SP == 4
+    const Kernel kernel = SP == 4
         ? (prof ? score_step_kernel<4, true> : score_step_kernel<4, false>)
         : (prof ? score_step_kernel<8, true> : score_step_kernel<8, false>);
-    if (smem_of[dev][which] < lay.bytes) {
-        err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
-        if (err != cudaSuccess)
-            return (int)err;
-        smem_of[dev][which] = lay.bytes;
-    }
-    const int sms = sms_of[dev];
-    Args a = {(const uint32_t*)codes, (const int32_t*)rl,
-              (const int32_t*)rows, (const int32_t*)count, cap,
-              (const uint8_t*)bank, 4L * nbw, (const uint8_t*)onehot, onb,
-              (const uint4*)sterms, (const int32_t*)qmeta,
-              (const int32_t*)tseg, (u64*)basecount, (u64*)seqhits,
-              (u64*)seqbasehits, Lpad, Qp, G, maxerrors, minoverlap,
-              (long long*)prof};
-    kernel<<<sms, NTHREADS, lay.bytes, (cudaStream_t)stream>>>(a, lay);
-    return (int)cudaGetLastError();
+    const Args a = {(const uint32_t*)codes, (const int32_t*)rl,
+                    (const int32_t*)rows, (const int32_t*)count, cap,
+                    (const uint8_t*)bank, 4L * nbw, (const uint8_t*)onehot,
+                    onb, (const uint4*)sterms, (const int32_t*)qmeta,
+                    (const int32_t*)tseg, (u64*)basecount, (u64*)seqhits,
+                    (u64*)seqbasehits, Lpad, Qp, G, maxerrors, minoverlap,
+                    (long long*)prof, nullptr, nullptr, 0, nullptr};
+    return launch(kernel, which, a, SP, cap, true, stream);
+}
+
+// H1.  codes, rl, rows, count, cap, bank, nbw, onehot, onb, sterms, qmeta,
+// tseg, Lpad, Qp, nch, maxerrors, minoverlap as kvq_score_step; row_ids:
+// int32 [B], the id a triplet reports for batch row b, or null (b itself);
+// out: int32 [outcap, 3], the triplets (row id, template, shift d) in no
+// particular order; nout: int32 [1], zero on entry, the number of
+// triplets on exit (also where it exceeds outcap: only the first outcap
+// slots are written).  Returns the CUDA error code of the launch.
+int kvq_hit_extract(const void* codes, const void* rl, const void* rows,
+                    const void* count, int cap, const void* bank, int nbw,
+                    const void* onehot, long onb, const void* sterms,
+                    const void* qmeta, const void* tseg, const void* row_ids,
+                    void* out, void* nout, int outcap, int Lpad, int Qp,
+                    int nch, int maxerrors, int minoverlap, void* stream)
+{
+    if (cap <= 0 || Qp <= 0)
+        return 0;
+    if (Lpad <= 0 || Lpad % 4 || (nch != 4 && nch != 5) || outcap < 0)
+        return (int)cudaErrorInvalidValue;
+    const int SP = nch == 4 ? 4 : 8;
+    const Args a = {(const uint32_t*)codes, (const int32_t*)rl,
+                    (const int32_t*)rows, (const int32_t*)count, cap,
+                    (const uint8_t*)bank, 4L * nbw, (const uint8_t*)onehot,
+                    onb, (const uint4*)sterms, (const int32_t*)qmeta,
+                    (const int32_t*)tseg, nullptr, nullptr, nullptr, Lpad,
+                    Qp, 0, maxerrors, minoverlap, nullptr, (int32_t*)out,
+                    (int32_t*)nout, outcap, (const int32_t*)row_ids};
+    return launch(SP == 4 ? hit_extract_kernel<4> : hit_extract_kernel<8>,
+                  4 + (SP == 4 ? 0 : 1), a, SP, cap, false, stream);
 }
 
 }  // extern "C"

@@ -12,7 +12,7 @@ C++ reader (:py:mod:`~kvarq_tpu_torch.engine.reader`,
 (:py:mod:`~kvarq_tpu_torch.engine.sieve`).  The device steps are
 :py:class:`kvarq_tpu_torch.engine.tensor_scan.TensorScanner` (coverage)
 and the matchers of :py:mod:`kvarq_tpu_torch.engine.match_pallas` (on
-the card: candidate screen, then exact extraction) and
+the card: candidate screen, compaction, then the exact extraction H1) and
 :py:mod:`kvarq_tpu_torch.engine.match_xla` (on the CPU: exact extraction
 alone); with a ``mesh`` configured, their sharded counterparts in
 :py:mod:`kvarq_tpu_torch.parallel`.

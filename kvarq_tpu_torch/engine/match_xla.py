@@ -7,23 +7,31 @@ It builds on the scanner's own bank state
 (:py:func:`kvarq_tpu_torch.engine.pallas_scan.device_arrays` of a
 :py:class:`_Bank` with minoverlap gaps, the concatenated template bank of
 kvarq_tpu's module, copied here), so a shift column ``q`` carries its
-template in ``tseg[q]`` and its shift in ``qmeta[ROW_D, q]``.  A pass is
-the scanner's match product, :py:func:`mode_weights`, ``w > 0`` and
-``torch.nonzero``; its triplets are copied to the host once.  Passes are
-:py:func:`~kvarq_tpu_torch.engine.tensor_scan.score_rows` reads, which
-bounds the ``[rows, Qp]`` temporaries by the device's memory.
+template in ``tseg[q]`` and its shift in ``qmeta[ROW_D, q]``.
+
+On a CUDA tensor :py:func:`extract` launches the kernel H1
+(:py:func:`~kvarq_tpu_torch.engine.pallas_scan.hit_triplets`), which
+writes only the passing triplets into a buffer of a capacity the matcher
+keeps, and reads the buffer and its count back in one copy: one wait on
+the card per batch, nothing of size ``[rows, Qp]``.  A count above the
+capacity scores the batch again at the next power of two at or above
+it, and the matcher keeps the larger capacity.  On a CPU tensor it is
+the plain version
+(:py:func:`~kvarq_tpu_torch.engine.pallas_scan.hit_triplets_ref`: the
+match product, ``tensor_scan.mode_weights``, ``w > 0`` and
+``torch.nonzero``) in passes of :py:func:`~kvarq_tpu_torch.engine.tensor_scan.score_rows`
+reads, which bounds its ``[rows, Qp]`` temporaries.
 
 The JAX package's TPU workarounds (the 512-wide window, the ``pack16``
 f32 bit-packing, the wide-row gather and the fixed element budget) have
-no counterpart: ``nonzero`` gives the pairs directly.
+no counterpart.
 '''
 
 import numpy as np
 import torch
 
 from kvarq_tpu_torch.engine import encode, pallas_scan
-from kvarq_tpu_torch.engine.pallas_scan import ROW_D, ROW_SEQL, ROW_VALID
-from kvarq_tpu_torch.engine.tensor_scan import mode_weights, score_rows
+from kvarq_tpu_torch.engine.tensor_scan import score_rows
 
 
 class _Bank:
@@ -88,39 +96,46 @@ class _Bank:
         self.seql_of = seql_of
 
 
-def _empty():
-    return np.empty((0, 3), dtype=np.int64)
+def read_triplets(codes, rl, state, maxerrors, minoverlap, idx=None,
+                  count=None, row_ids=None, cap=pallas_scan.HIT_CAP):
+    ''' :py:func:`~kvarq_tpu_torch.engine.pallas_scan.hit_triplets` (H1
+        on a CUDA tensor) and one readback of the buffer with its count;
+        a count above ``cap`` scores the rows again at the next power of
+        two at or above it.  :returns: ``(triplets, cap)`` -- the int64
+        ``[n, 3]`` numpy triplets and the capacity that held them '''
+    while True:
+        buf, n = pallas_scan.hit_triplets(codes, rl, state, maxerrors,
+                                          minoverlap, idx, count, row_ids,
+                                          cap)
+        tri, n = pallas_scan.triplets_to_host(buf, n)
+        if n <= cap:
+            return tri, cap
+        cap = 1 << (n - 1).bit_length()
 
 
 def extract(codes, rl, state, maxerrors, minoverlap, rows=None,
-            row_ids=None):
+            row_ids=None, idx=None, count=None, cap=pallas_scan.HIT_CAP):
     '''
     passing triplets of ``codes [B, Lpad] uint8``, ``rl [B] int32``
     (device tensors; ``rl == 0`` rows never pass).
 
-    :param rows: reads per pass (None: all at once)
-    :param row_ids: int64 ``[B]`` device tensor mapping row ``i`` to the
-        batch row reported for it (None: ``i`` itself)
+    :param rows: reads per pass of the plain version (None: all at once)
+    :param row_ids: int32 ``[B]`` device tensor mapping batch row ``b`` to
+        the row reported for it (None: ``b`` itself)
+    :param idx: int32 ``[n]`` device tensor of the batch rows to extract
+        (None: every row); ``count``, a one-element int32 tensor on the
+        device: ``idx[:count]`` only (None: all of ``idx``)
+    :param cap: the card's first triplet capacity (:py:func:`read_triplets`)
     :returns: int64 ``[n, 3]`` numpy array of ``(b, template, d)``, in
         no particular order
     '''
-    B = codes.shape[0]
-    qm = state.qmeta
-    rows = rows or B
-    out = []
-    for s in range(0, B, rows):
-        m = pallas_scan.match_counts(codes[s:s + rows], state.K, state.nch)
-        w, _ = mode_weights(m, rl[s:s + rows, None], qm[ROW_D:ROW_D + 1],
-                            qm[ROW_SEQL:ROW_SEQL + 1],
-                            qm[ROW_VALID:ROW_VALID + 1], maxerrors,
-                            minoverlap)
-        del m
-        b, q = torch.nonzero(w > 0, as_tuple=True)
-        del w
-        b = b + s if row_ids is None else row_ids[b + s]
-        out.append(torch.stack([b, state.tseg[q].long(), qm[ROW_D][q].long()],
-                               dim=1).cpu().numpy())
-    return np.concatenate(out) if out else _empty()
+    if codes.device.type == 'cuda':
+        return read_triplets(codes, rl, state, maxerrors, minoverlap, idx,
+                             count, row_ids, cap)[0]
+    buf, _ = pallas_scan.hit_triplets_ref(codes, rl, state, maxerrors,
+                                          minoverlap, idx, count, row_ids,
+                                          None, rows)
+    return buf.numpy().astype(np.int64)
 
 
 class XlaMatcher:
@@ -134,6 +149,8 @@ class XlaMatcher:
         self.minoverlap = minoverlap
         self.device = torch.device(device)
         self._ctx = {}
+        # the card's triplet capacity: it only grows
+        self.cap = pallas_scan.HIT_CAP
 
     def context(self, Lpad):
         ''' :returns: ``(state, rows)`` -- the :py:class:`BankState` at
@@ -146,16 +163,27 @@ class XlaMatcher:
         return self._ctx[Lpad]
 
     def to_device(self, batch):
-        ''' the batch's ``codes`` and int32 ``rl`` on the device '''
+        ''' the batch's ``codes`` and int32 ``rl`` on the device (no wait
+            on the card) '''
         codes = torch.from_numpy(np.ascontiguousarray(batch.codes)).to(
-            self.device)
+            self.device, non_blocking=True)
         rl = torch.from_numpy(np.ascontiguousarray(batch.rl, np.int32)).to(
-            self.device)
+            self.device, non_blocking=True)
         return codes, rl
+
+    def extract(self, codes, rl, idx=None, count=None):
+        ''' :py:func:`extract` of the rows ``idx[:count]`` of a batch on
+            the device, at this matcher's capacity (grown where a batch
+            overflows it) '''
+        state, rows = self.context(codes.shape[1])
+        if codes.device.type == 'cuda':
+            tri, self.cap = read_triplets(codes, rl, state, self.maxerrors,
+                                          self.minoverlap, idx, count,
+                                          cap=self.cap)
+            return tri
+        return extract(codes, rl, state, self.maxerrors, self.minoverlap,
+                       rows, idx=idx, count=count)
 
     def match_batch(self, batch):
         ''' :returns: int64 ``[n, 3]`` ``(b, template, d)`` triplets '''
-        state, rows = self.context(batch.codes.shape[1])
-        codes, rl = self.to_device(batch)
-        return extract(codes, rl, state, self.maxerrors, self.minoverlap,
-                       rows)
+        return self.extract(*self.to_device(batch))

@@ -21,6 +21,12 @@ the exact scoring of one batch of reads.
   int64 atomics, one persistent block per SM whatever the count; the
   device work kvarq_tpu leaves to XLA in ``score_full``), on a CPU
   tensor its plain version :py:func:`score_candidates_ref`.
+- :py:func:`hit_triplets` is the exact hit extraction of a list of rows:
+  on a CUDA tensor the kernel H1 (S1's pipeline in csrc/score_step.cu
+  with a drain that writes each passing ``(row, template, shift)``
+  triplet into a buffer at a slot taken by an atomic counter; the device
+  work kvarq_tpu leaves to XLA in ``match_xla._jit_step``), on a CPU
+  tensor its plain version :py:func:`hit_triplets_ref`.
 - :py:func:`scan_step_banked` is one device step in dense mode (exact
   scoring of every read) or gathered mode (screen, compaction on the
   device with :py:func:`compact`, exact scoring of every candidate).  On
@@ -579,6 +585,168 @@ score_candidates.launches = 0
 # csrc/kvq_onehot_mma.h), clock64() cycles summed over warpgroups
 PROFILE_PHASES = ('build', 'mma', 'screen', 'drain', 'wait', 'total',
                   'stage', 'stage_wait')
+
+
+# --- exact hit extraction -----------------------------------------------------
+
+# the triplet buffer's capacity when the caller gives none
+HIT_CAP = 4096
+
+
+def _hit_buffer(cap, device):
+    ''' the triplet buffer ``[cap, 3]`` and its counter, views of one int32
+        storage with the counter first (:py:func:`triplets_to_host` copies
+        both at once); the counter is zero, the buffer not cleared '''
+    flat = torch.empty(1 + 3 * cap, dtype=torch.int32, device=device)
+    flat[:1].zero_()      # a fill on the card (item assignment would copy)
+    return flat[1:].view(cap, 3), flat[0]
+
+
+def triplets_to_host(buf, n):
+    ''' ``(triplets, count)``: the first ``min(count, cap)`` rows of the
+        buffer as an int64 ``[m, 3]`` numpy array and the count, from the
+        views :py:func:`hit_triplets` returns, in one copy to the host (one
+        wait on the card) '''
+    cap = buf.shape[0]
+    host = buf.as_strided((1 + 3 * cap,), (1,), n.storage_offset()).cpu() \
+        .numpy()
+    count = int(host[0])
+    m = min(count, cap)
+    return host[1:1 + 3 * m].reshape(m, 3).astype(np.int64), count
+
+
+def _check_hit_args(codes, rl, state, idx, count, row_ids, cap):
+    ''' :py:func:`_check_score_args` and the extraction's own arguments '''
+    _check_score_args(codes, rl, state, idx, count)
+    B = codes.shape[0]
+    if row_ids is not None and (
+            row_ids.device != codes.device or row_ids.dtype != torch.int32
+            or tuple(row_ids.shape) != (B,) or not row_ids.is_contiguous()):
+        raise ValueError(
+            'hit_triplets: row_ids must be a contiguous int32 tensor of shape '
+            '%s on %s (got %s %s on %s)' % ((B,), codes.device, row_ids.dtype,
+                                            tuple(row_ids.shape),
+                                            row_ids.device))
+    if cap is not None and not 0 <= cap < 1 << 29:
+        raise ValueError('hit_triplets: cap %r out of range' % (cap,))
+
+
+def hit_triplets_ref(codes, rl, state, maxerrors, minoverlap, idx=None,
+                     count=None, row_ids=None, cap=HIT_CAP, rows=None):
+    ''' plain PyTorch version of :py:func:`hit_triplets`: the rows
+        ``idx[:count]`` (every row when ``idx`` is None) as kvarq_tpu's
+        ``XlaMatcher`` extracts them: the match product, ``mode_weights``
+        over ``[rows, Qp]``, ``w > 0`` and ``torch.nonzero``, in passes of
+        ``rows`` reads (None: all at once).  It reads the count on the
+        host.  ``cap`` None sizes the buffer to the triplets. '''
+    _check_hit_args(codes, rl, state, idx, count, row_ids, cap)
+    from kvarq_tpu_torch.engine.tensor_scan import mode_weights
+    sel = torch.arange(codes.shape[0], device=codes.device)
+    if idx is not None:
+        n = len(idx) if count is None else max(0, min(int(count), len(idx)))
+        sel = idx[:n].long()
+    qm = state.qmeta
+    rows = rows or max(1, len(sel))
+    out = []
+    for s in range(0, len(sel), rows):
+        b = sel[s:s + rows]
+        m = match_counts(codes[b], state.K, state.nch)
+        w, _ = mode_weights(m, rl[b, None], qm[ROW_D:ROW_D + 1],
+                            qm[ROW_SEQL:ROW_SEQL + 1],
+                            qm[ROW_VALID:ROW_VALID + 1], maxerrors,
+                            minoverlap)
+        del m
+        r, q = torch.nonzero(w > 0, as_tuple=True)
+        del w
+        b = b[r]
+        out.append(torch.stack([
+            b if row_ids is None else row_ids[b].long(),
+            state.tseg[q].long(), qm[ROW_D][q].long()], dim=1))
+    tri = torch.cat(out) if out else torch.zeros((0, 3), dtype=torch.int64,
+                                                 device=codes.device)
+    n = len(tri)
+    buf, cnt = _hit_buffer(n if cap is None else cap, codes.device)
+    m = min(n, buf.shape[0])
+    buf[:m] = tri[:m].to(torch.int32)
+    cnt.fill_(n)
+    return buf, cnt
+
+
+def _hit_lib():
+    lib = native_cuda.load('score_step.cu')
+    fn = lib.kvq_hit_extract
+    if fn.argtypes is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, vp, vp, i, vp, i, vp, ctypes.c_long, vp, vp,
+                       vp, vp, vp, vp, i, i, i, i, i, i, vp]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def hit_triplets(codes, rl, state, maxerrors, minoverlap, idx=None,
+                 count=None, row_ids=None, cap=HIT_CAP):
+    '''
+    exact hit extraction of rows of one batch: every ``(row, template,
+    shift)`` of a row and a shift column ``q`` with a hit-mode weight
+    above 0 (kvarq_tpu's ``XlaMatcher`` triplets), as ``(row_ids[b],
+    tseg[q], qmeta[ROW_D, q])``, in no particular order.
+
+    :param codes: uint8 ``[B, Lpad]`` read codes
+    :param rl: int32 ``[B]`` read lengths (0 for padding rows)
+    :param idx: int32 ``[n]`` batch rows to extract (None: every row)
+    :param count: int32 tensor of one element on the device of ``codes``:
+        extract ``idx[:count]`` (None: all of ``idx``)
+    :param row_ids: int32 ``[B]`` on the device of ``codes``: the id a
+        triplet reports for batch row ``b`` (None: ``b``)
+    :param cap: the triplet buffer's capacity
+    :returns: ``(buffer, n)`` -- int32 ``[cap, 3]`` whose first ``min(n,
+        cap)`` rows are triplets, and ``n``, the number of triplets (it
+        may exceed ``cap``), a 0-d int32 tensor on the device of
+        ``codes``; views of one storage (:py:func:`triplets_to_host`)
+
+    On a CPU tensor this is :py:func:`hit_triplets_ref`.  On a CUDA tensor
+    it launches H1 (csrc/score_step.cu ``kvq_hit_extract``) on the current
+    stream, or raises; the count is read on the card, never on the host,
+    and the kernel's grid (one block per SM) does not depend on it.
+    ``hit_triplets.launches`` counts those launches.
+    '''
+    _check_hit_args(codes, rl, state, idx, count, row_ids, cap)
+    if codes.device.type == 'cpu':
+        return hit_triplets_ref(codes, rl, state, maxerrors, minoverlap, idx,
+                                count, row_ids, cap)
+    if codes.device.type != 'cuda':
+        raise ValueError('hit_triplets: unsupported device %s' % codes.device)
+    if cap is None:
+        raise ValueError('hit_triplets: the card needs a cap')
+    B, Lpad = codes.shape
+    if Lpad % 4 or codes.data_ptr() % 4 or state.bank.numel() % 4:
+        raise ValueError('hit_triplets: Lpad, the codes pointer and the bank '
+                         'length must be multiples of 4')
+    buf, n = _hit_buffer(cap, codes.device)
+    rank = B if idx is None else len(idx)
+    if rank == 0:
+        return buf, n
+    with torch.cuda.device(codes.device):
+        err = _hit_lib()(
+            codes.data_ptr(), rl.data_ptr(),
+            None if idx is None else idx.data_ptr(),
+            None if count is None else count.data_ptr(), rank,
+            state.bank.data_ptr(), state.bank.numel() // 4,
+            state.onehot.data_ptr(), state.onehot.shape[1],
+            state.sterms.data_ptr(), state.qmeta.data_ptr(),
+            state.tseg.data_ptr(),
+            None if row_ids is None else row_ids.data_ptr(),
+            buf.data_ptr(), n.data_ptr(), cap, Lpad, state.Qp, state.nch,
+            maxerrors, minoverlap,
+            torch.cuda.current_stream(codes.device).cuda_stream)
+    if err:
+        raise RuntimeError('hit_extract kernel launch failed: CUDA error %d'
+                           % err)
+    hit_triplets.launches += 1
+    return buf, n
+
+
+hit_triplets.launches = 0
 
 
 def compact(mask, size=None):

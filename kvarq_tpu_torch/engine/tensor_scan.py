@@ -74,10 +74,10 @@ ELEM_BUDGET = 96 * 1024 * 1024
 # on the card: device bytes per [B, Qp] element of the plain scoring's
 # temporaries (match counts, mode_weights' f32 and bool intermediates, w
 # and ov; 23.75 GB at 16384 x 40064 on an H100), and the share of the
-# card's memory they may take.  The scan's own scoring on the card is the
-# kernel S1, which holds no [B, Qp] tensor: these size the passes of the
-# plain version (pallas_scan.score_candidates_ref) and of the hit path's
-# extraction (match_xla).
+# card's memory they may take.  The scan's own scoring and the hit path's
+# extraction on the card are the kernels S1 and H1, which hold no [B, Qp]
+# tensor: these size the passes of their plain versions
+# (pallas_scan.score_candidates_ref, hit_triplets_ref).
 SCORE_BYTES_PER_ELEM = 36
 SCORE_MEM_SHARE = 0.5
 

@@ -276,10 +276,12 @@ class ShardedMatcher:
         the hit-list path (``findseqs`` with a mesh): every entry screens
         its data slice against its bank shard with the candidate kernel, a
         read is flagged if any shard flags it, the flagged rows are
-        compacted on the mesh's first device and re-scored exactly there
-        by the full-bank
-        :py:class:`~kvarq_tpu_torch.engine.match_xla.XlaMatcher`.  Triplets
-        map back to batch rows, so ``Hit.file_pos`` stays global.
+        compacted on the mesh's first device
+        (:py:func:`~kvarq_tpu_torch.engine.pallas_scan.compact`, the count
+        stays there) and extracted exactly there by the full-bank
+        :py:class:`~kvarq_tpu_torch.engine.match_xla.XlaMatcher` (on a card,
+        the kernel H1), which reports batch rows, so ``Hit.file_pos`` stays
+        global; one wait on the host per batch, for the triplets.
         ``launches`` counts the candidate-kernel launches per mesh
         entry. '''
 
@@ -304,7 +306,6 @@ class ShardedMatcher:
 
     def match_batch(self, batch):
         ''' :returns: int64 ``[n, 3]`` ``(b, template, d)`` triplets '''
-        from kvarq_tpu_torch.engine.match_xla import _empty, extract
         B, Lpad = batch.codes.shape
         bank = self._bank(Lpad)
         flags = torch.zeros(B, dtype=torch.bool, device=self.mesh.first)
@@ -318,13 +319,8 @@ class ShardedMatcher:
                                             self.maxerrors, self.minoverlap)
             flags[lo_:lo_ + n] = f[:n]
             self.launches += launches
-        idx = torch.nonzero(flags).flatten()
-        if not len(idx):
-            return _empty()
-        state, rows = self.xla.context(Lpad)
-        codes, rl = self.xla.to_device(batch)
-        return extract(codes[idx], rl[idx], state, self.maxerrors,
-                       self.minoverlap, rows, row_ids=idx)
+        idx, count = pallas_scan.compact(flags)
+        return self.xla.extract(*self.xla.to_device(batch), idx, count)
 
 
 class ShardedScanner:

@@ -3,7 +3,9 @@
 S1, the exact scoring kernel (csrc/score_step.cu), on the card at the
 main path's shape: exactness against its plain version
 (``pallas_scan.score_candidates_ref``), its time beside its bound, and
-where its time goes inside the kernel.
+where its time goes inside the kernel; and H1, the exact hit extraction
+of the same source (``kvq_hit_extract``), dense and gathered, against
+``pallas_scan.hit_triplets_ref`` beside its bound.
 
 Methodology: the MTBC bank (Lpad 128, nch 4, 2 errors, minoverlap 25);
 one batch of ``--batch`` reads (16,384) of ``--readlen`` bases, a
@@ -21,7 +23,10 @@ longer of the one-hot product's int8 operations at the card's peak and
 its bytes (inputs read once, outputs written once) at the memory rate.
 The split is one more launch with the kernel's profile buffer: each
 warpgroup's ``clock64()`` cycles per phase (``PROFILE_PHASES``), as
-shares of the consumer warpgroups' total.
+shares of the consumer warpgroups' total.  H1 takes the forms ``dense``
+and ``gathered`` of the same batch, compared as sorted triplet sets and
+timed the same way (it has no profile buffer); its bound adds the
+triplets written to the product's.
 
 Usage:
     python -m kvarq_tpu_torch.tools.s1_bench [--batch 16384] [--deep]
@@ -107,15 +112,18 @@ def s1_bound(rows, Lpad, state, gathered):
 
 def ptxas_summary(report):
     ''' registers, shared memory and spills of each kernel entry in an
-        ``nvcc -Xptxas -v`` report, each named by its template arguments
-        (``SP=4``: the depth bytes per read position of nch 4) '''
+        ``nvcc -Xptxas -v`` report, each named by its kernel and template
+        arguments (``score_step_kernel SP=4,0``: the depth bytes per read
+        position of nch 4, no profile buffer) '''
     entries = [['file']]
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
+            name = re.search(r'[a-z_]+_kernel', m.group(1))
             args = re.findall(r'Li(\d+)E|Lb([01])E', m.group(1))
-            entries.append(['SP=' + ','.join(a or b for a, b in args)
-                            if args else m.group(1)])
+            entries.append([(name.group(0) + ' ' if name else '')
+                            + ('SP=' + ','.join(a or b for a, b in args)
+                               if args else m.group(1))])
         elif (('registers' in line or 'spill' in line or 'serialized' in line
                or 'setmaxnreg' in line) and 'is injected' not in line):
             entries[-1].append(line.split('ptxas info    :')[-1].strip())
@@ -209,6 +217,72 @@ def measure(tps, codes, rl, state, e, mo, deep=False, reps=5):
     return out
 
 
+def hit_bound(rows, Lpad, state, gathered, triplets):
+    ''' H1's bound at this call: the one-hot product of the ``rows`` it
+        extracts at the card's int8 peak, or its bytes at the memory rate
+        -- the rows' codes and read lengths (and indices when
+        ``gathered``), the bank bytes, qmeta and tseg read once, the int32
+        triplets and their counter written once -- whichever is longer '''
+    ops = 2.0 * rows * Lpad * state.nch * state.Qp
+    nbytes = (rows * (Lpad + 4 + (4 if gathered else 0))
+              + state.bank.numel() + 4 * state.qmeta.numel()
+              + 4 * state.tseg.numel() + 12 * triplets + 4)
+    return roofline(ops, nbytes)
+
+
+def _tri_sorted(tri):
+    return tri[np.lexsort(tri.T[::-1])]
+
+
+def measure_hits(tps, codes, rl, state, e, mo, reps=5):
+    ''' H1 (``hit_triplets``) in the forms ``dense`` (every row) and
+        ``gathered`` (the rows K1 flags, compacted on the card, the count
+        read there): exactness against ``hit_triplets_ref`` as sorted
+        triplet sets (raises AssertionError), times (CUDA events, median of
+        ``reps``, plain, kernel, kernel, plain; the kernel alone under the
+        profiler) and bound.
+        :returns: ``{form: {rows, triplets, ms, kernel_ms, plain_ms,
+        ms_runs, bound_ms, bound_by, ops, bytes, max_abs_err}}`` '''
+    Lpad = codes.shape[1]
+    out = {}
+    for form, args, rows in forms(tps, codes, rl, state, e, mo)[:2]:
+        want, n = tps.triplets_to_host(*tps.hit_triplets_ref(
+            codes, rl, state, e, mo, *args, cap=None))
+        cap = 1 << max(n, tps.HIT_CAP).bit_length()
+        got, gn = tps.triplets_to_host(*tps.hit_triplets(
+            codes, rl, state, e, mo, *args, cap=cap))
+        assert gn == n and np.array_equal(_tri_sorted(got),
+                                          _tri_sorted(want)), (
+            'H1 differs from hit_triplets_ref, %s (%d triplets against %d)'
+            % (form, gn, n))
+
+        def kernel(args=args):
+            tps.hit_triplets(codes, rl, state, e, mo, *args, cap=cap)
+
+        def plain(args=args):
+            tps.hit_triplets_ref(codes, rl, state, e, mo, *args, cap=cap)
+        times = [cuda_time_ms(f, reps) for f in (plain, kernel, kernel, plain)]
+        b = hit_bound(rows, Lpad, state, bool(args), n)
+        out[form] = dict(rows=rows, triplets=n, ms=min(times[1:3]),
+                         kernel_ms=kernel_ms(kernel, 'hit_extract_kernel'),
+                         plain_ms=min(times[0], times[3]), ms_runs=times,
+                         bound_ms=b['bound_ms'], bound_by=b['bound_by'],
+                         ops=b['ops'], bytes=b['bytes'], max_abs_err=0)
+    return out
+
+
+def describe_hits(form, r):
+    ''' one line of :py:func:`measure_hits`'s result for ``form`` '''
+    return ('H1 %s: %d rows, %d triplets, exact; kernel %.4f / %.4f ms, '
+            'plain %.3f / %.3f ms (CUDA events, plain, kernel, kernel, '
+            'plain); the kernel alone %.4f ms (profiler); bound %.4f ms (%s), '
+            'the kernel at %.1f%% of it' % (
+                form, r['rows'], r['triplets'], r['ms_runs'][1],
+                r['ms_runs'][2], r['ms_runs'][0], r['ms_runs'][3],
+                r['kernel_ms'] or float('nan'), r['bound_ms'], r['bound_by'],
+                100 * r['bound_ms'] / (r['kernel_ms'] or r['ms'])))
+
+
 def describe(form, r):
     ''' one line of :py:func:`measure`'s result for ``form`` '''
     s = r['split']
@@ -262,7 +336,7 @@ def main(argv=None):
     windows = bench.template_windows(bench.load_mtbc())
     bank = tensor_scan.build_bank(seqs, LPAD, MINOVERLAP)
     state = tps.device_arrays(bank, len(seqs), dev)
-    result = {}
+    result, hits = {}, {}
     for deep in (False, True) if args.deep else (False,):
         codes, rl = synth_batch(windows, args.batch, args.readlen,
                                 args.hitfrac, deep=deep)
@@ -272,9 +346,13 @@ def main(argv=None):
         for form, v in got.items():
             print('%s; %s' % (describe(form, v), card), flush=True)
         result.update(got)
+        if not deep:
+            hits = measure_hits(tps, c, r, state, MAXERRORS, MINOVERLAP)
+            for form, v in hits.items():
+                print('%s; %s' % (describe_hits(form, v), card), flush=True)
     print(json.dumps({'metric': 's1_bench', 'device': card, 'B': args.batch,
                       'Lpad': LPAD, 'Qp': state.Qp, 'nch': state.nch,
-                      'forms': result}))
+                      'forms': result, 'hit_forms': hits}))
     return 0
 
 

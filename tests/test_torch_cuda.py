@@ -1,6 +1,7 @@
 '''
-kvarq_tpu_torch on the card: the CUDA kernels (the candidate screen K1 and
-the exact scoring S1) against their plain PyTorch versions, the scan
+kvarq_tpu_torch on the card: the CUDA kernels (the candidate screen K1,
+the exact scoring S1 and the hit extraction H1) against their plain
+PyTorch versions, the hit matchers' one wait on the host per batch, the scan
 step with no host round trip, scanner, screening matcher and
 ``findseqs`` on CUDA against the same code on the CPU, and the sharded
 scanner and matcher (on a mesh that repeats one card, and over every
@@ -441,17 +442,18 @@ def _sorted(tri):
 @pytest.mark.parametrize('nch', [4, 5])
 @pytest.mark.parametrize('Lpad', [64, 192])
 def test_screening_matcher_cuda_matches_cpu(cuda, nch, Lpad):
-    ''' one K1 launch per batch, compaction on the card, the same
-        triplets as the plain screen on the CPU '''
+    ''' one K1 and one H1 launch per batch, compaction on the card, the
+        same triplets as the plain screen on the CPU '''
     seqs, codes, rl, _ = case(70 + Lpad, nch, B=96, Lpad=Lpad, nseq=9)
     batch = reader.RecordBatch(codes, rl, np.zeros(len(codes), np.int64),
                                None)
     for e, mo in ((2, 25), (3, 8)):
         want = match_pallas.PallasMatcher(seqs, e, mo, 'cpu') \
             .match_batch(batch)
-        before = tps.cand_counts.launches
+        before = tps.cand_counts.launches, tps.hit_triplets.launches
         got = match_pallas.PallasMatcher(seqs, e, mo, cuda).match_batch(batch)
-        assert tps.cand_counts.launches == before + 1
+        assert (tps.cand_counts.launches, tps.hit_triplets.launches) \
+            == (before[0] + 1, before[1] + 1)
         np.testing.assert_array_equal(_sorted(got), _sorted(want))
         assert len(want) > 0
 
@@ -460,15 +462,16 @@ def test_screening_matcher_cuda_matches_cpu(cuda, nch, Lpad):
     dict(maxerrors=0, minoverlap=1000, minreadlength=3),
     dict(maxerrors=1, minoverlap=10, minreadlength=5)])
 def test_findseqs_cuda_matches_cpu(cuda, params):
-    ''' the hit list on the card (through K1) equals the CPU's '''
+    ''' the hit list on the card (through K1 and H1) equals the CPU's '''
     out = []
     try:
         for dev in ('cpu', cuda):
             tengine.config(device=str(dev), Amin='!', nthreads=1, **params)
-            before = tps.cand_counts.launches
+            before = tps.cand_counts.launches, tps.hit_triplets.launches
             out.append(tengine.findseqs(FASTQ, SEQS7))
             if dev == cuda:
-                assert tps.cand_counts.launches > before
+                assert tps.cand_counts.launches > before[0]
+                assert tps.hit_triplets.launches > before[1]
     finally:
         tengine.config(device='cuda')
     assert out[0] == out[1]
@@ -558,3 +561,224 @@ def test_local_mesh_cuda(cuda):
     assert mesh.shape == {'data': count, 'bank': 1}
     assert [row[0] for row in mesh.devices] == [
         torch.device('cuda', k) for k in range(count)]
+
+
+# --- H1, the exact hit extraction --------------------------------------------
+
+def _tri_set(tri):
+    ''' a triplet array in lexicographic order '''
+    tri = np.asarray(tri, dtype=np.int64).reshape(-1, 3)
+    return tri[np.lexsort(tri.T[::-1])]
+
+
+def _hits_equal(c, r, state, form, params=((2, 25), (3, 8)), cap=1 << 16,
+                row_ids=None):
+    ''' H1 equals hit_triplets_ref exactly, as sorted triplet sets, at a
+        capacity of at least ``cap`` that holds them all: ``dense`` over
+        every row, ``gathered`` over the rows K1 flags, compacted (the ranks
+        past the count hold real rows, which must not be read).
+        :returns: the triplets of the first ``(e, mo)`` '''
+    found = None
+    for e, mo in params:
+        if form == 'dense':
+            args = ()
+        else:
+            hit = tps.cand_counts(c, r, state, e, mo, state.nch) > 0
+            idx, count = tps.compact(hit)
+            n = int(count)
+            idx[n:] = torch.arange(len(idx) - n, dtype=torch.int32,
+                                   device=c.device)
+            args = (idx, count)
+        want, wn = tps.triplets_to_host(*tps.hit_triplets_ref(
+            c, r, state, e, mo, *args, row_ids=row_ids, cap=None, rows=4096))
+        size = max(cap, wn)
+        before = tps.hit_triplets.launches
+        buf, n = tps.hit_triplets(c, r, state, e, mo, *args, row_ids=row_ids,
+                                  cap=size)
+        torch.cuda.synchronize()
+        assert tps.hit_triplets.launches == before + 1
+        assert buf.dtype == torch.int32 and buf.shape == (size, 3)
+        assert n.device == c.device and n.dim() == 0
+        got, count = tps.triplets_to_host(buf, n)
+        assert count == wn
+        np.testing.assert_array_equal(_tri_set(got), _tri_set(want),
+                                      err_msg='e=%d mo=%d %s' % (e, mo, form))
+        found = want if found is None else found
+    return found
+
+
+@pytest.mark.parametrize('form', ['dense', 'gathered'])
+@pytest.mark.parametrize('bank', ['one tile', 'MTBC'])
+@pytest.mark.parametrize('nch', [4, 5])
+@pytest.mark.parametrize('Lpad', [64, 128, 192])
+@pytest.mark.parametrize('B', [1, 577, 16384])
+def test_hit_kernel_equals_ref(cuda, B, Lpad, nch, bank, form):
+    ''' H1 at the reader's read paddings, both channel counts, a one-tile
+        and the whole MTBC bank, one read to a main-path batch, dense and
+        gathered '''
+    seqs, state = _state(cuda, bank, Lpad, nch)
+    rng = np.random.RandomState(B + Lpad + nch + 7)
+    codes, rl = _planted_reads(rng, seqs, B, Lpad, nch)
+    tri = _hits_equal(torch.from_numpy(codes).to(cuda),
+                      torch.from_numpy(rl).to(cuda), state, form)
+    assert len(tri) > 0 or B == 1
+
+
+@pytest.mark.parametrize('nch', [4, 5])
+def test_hit_kernel_on_bank_shards(cuda, nch):
+    ''' H1 on each shard of the MTBC bank split in two: template ids are
+        global '''
+    seqs = _bank_seqs('MTBC', nch)
+    bank = parallel.ShardBank(seqs, 128, 2, 25)
+    rng = np.random.RandomState(20 + nch)
+    codes, rl = _planted_reads(rng, seqs, 577, 128, nch)
+    c, r = torch.from_numpy(codes).to(cuda), torch.from_numpy(rl).to(cuda)
+    for j in range(2):
+        for form in ('dense', 'gathered'):
+            tri = _hits_equal(c, r, bank.state(j, cuda), form)
+            assert len(tri) > 0
+            lo_, hi = bank.ranges[j]
+            assert ((tri[:, 1] >= lo_) & (tri[:, 1] < hi)).all()
+
+
+@pytest.mark.parametrize('nch', [4, 5])
+@pytest.mark.parametrize('n', [0, 1, 127, 128, 129, 535, 'B', 'above'])
+def test_hit_kernel_at_counts(cuda, nch, n):
+    ''' H1 over idx[:count], count read on the card, at counts 0 to B and
+        above len(idx) (clamped): every rank below the count once, none
+        past it; a row map applied to the batch rows; read back by
+        ``read_triplets`` (a rerun where the first capacity overflows) '''
+    seqs, state = _state(cuda, 'MTBC', 128, nch)
+    rng = np.random.RandomState(95 + nch)
+    B = 1536
+    codes, rl = _planted_reads(rng, seqs, B, 128, nch)
+    n = {'B': B, 'above': B + 77}.get(n, n)
+    c, r = torch.from_numpy(codes).to(cuda), torch.from_numpy(rl).to(cuda)
+    idx = torch.from_numpy(rng.permutation(B).astype(np.int32)).to(cuda)
+    count = torch.tensor(n, dtype=torch.int32, device=cuda)
+    ids = torch.from_numpy((rng.permutation(B) + 10 ** 6).astype(np.int32)) \
+        .to(cuda)
+    from kvarq_tpu_torch.engine import match_xla
+    for e, mo in ((2, 25), (3, 8)):
+        for row_ids in (None, ids):
+            got, _ = match_xla.read_triplets(c, r, state, e, mo, idx, count,
+                                             row_ids, cap=1 << 12)
+            want = tps.triplets_to_host(*tps.hit_triplets_ref(
+                c, r, state, e, mo, idx, count, row_ids, cap=None))
+            assert len(got) == want[1]
+            np.testing.assert_array_equal(_tri_set(got), _tri_set(want[0]))
+            if n >= 128:
+                assert want[1] > 0
+            elif n == 0:
+                assert want[1] == 0
+
+
+@pytest.mark.parametrize('nch', [4, 5])
+@pytest.mark.parametrize('Lpad', [64, 128, 192])
+def test_hit_kernel_deep_locus_overflows(cuda, nch, Lpad):
+    ''' every row the same planted read: the triplets of one locus overflow
+        a small capacity.  The counter still ends at the true number, the
+        slots written are triplets of the set, and the matcher's rerun at
+        the next power of two gives the whole set and keeps the capacity '''
+    from kvarq_tpu_torch.engine import match_xla
+    seqs, state = _state(cuda, 'MTBC', Lpad, nch)
+    piece = max(seqs, key=len)[:Lpad - 8].encode()
+    raw = np.full((1, Lpad), ord('A'), dtype=np.uint8)
+    raw[0, 4:4 + len(piece)] = np.frombuffer(piece, np.uint8)
+    codes = encode.encode_read_array(raw)
+    codes[0, 4 + len(piece):] = encode.CODE_READ_JUNK
+    codes = np.repeat(codes, 4096, 0)
+    rl = np.full(4096, 4 + len(piece), dtype=np.int32)
+    c, r = torch.from_numpy(codes).to(cuda), torch.from_numpy(rl).to(cuda)
+    want = _tri_set(_hits_equal(c, r, state, 'dense', ((2, 25),)))
+    assert len(want) >= 4096
+    got, n = tps.triplets_to_host(*tps.hit_triplets(c, r, state, 2, 25,
+                                                    cap=100))
+    assert n == len(want) and len(got) == 100
+    assert len(np.unique(got, axis=0)) == 100
+    assert {tuple(t) for t in got} <= {tuple(t) for t in want}
+    matcher = match_xla.XlaMatcher(seqs, 2, 25, cuda)
+    matcher.cap = 100
+    for form in ('dense', 'gathered'):
+        args = () if form == 'dense' else tps.compact(tps.cand_counts(
+            c, r, state, 2, 25, state.nch) > 0)
+        np.testing.assert_array_equal(
+            _tri_set(matcher.extract(c, r, *args)), want)
+        assert matcher.cap == 1 << (len(want) - 1).bit_length()
+
+
+@pytest.mark.parametrize('nch', [4, 5])
+def test_hit_kernel_long_reads(cuda, nch):
+    ''' reads padded to 1,024: the depth takes several chunks of the A
+        tile; dense and gathered '''
+    seqs, state = _state(cuda, 'one tile', 1024, nch)
+    rng = np.random.RandomState(2048 + nch)
+    codes, rl = _planted_reads(rng, seqs, 300, 1024, nch)
+    c, r = torch.from_numpy(codes).to(cuda), torch.from_numpy(rl).to(cuda)
+    for form in ('dense', 'gathered'):
+        assert len(_hits_equal(c, r, state, form, ((2, 10), (3, 8)))) > 0
+
+
+def test_hit_triplets_rejects_bad_input(cuda):
+    seqs, codes, rl, bank = case(3, 4)
+    state = tps.device_arrays(bank, len(seqs), cuda)
+    c, r = torch.from_numpy(codes).to(cuda), torch.from_numpy(rl).to(cuda)
+    idx, count = tps.compact(tps.cand_counts(c, r, state, 0, 25, 4) > 0)
+    ids = torch.arange(len(c), dtype=torch.int32, device=cuda)
+    for args, kw in (((c.to(torch.int32), r), {}), ((c, r.long()), {}),
+                     ((c, r, idx, count.cpu()), {}),
+                     ((c, r, idx.long(), count), {}),
+                     ((c, r), dict(row_ids=ids.long())),
+                     ((c, r), dict(row_ids=ids.cpu())),
+                     ((c, r), dict(row_ids=ids[:-1])),
+                     ((c, r), dict(cap=-1)), ((c, r), dict(cap=None))):
+        with pytest.raises(ValueError):
+            tps.hit_triplets(args[0], args[1], state, 0, 25, *args[2:], **kw)
+
+
+def _host_waits(fn):
+    ''' ``(fn(), waits)``: the synchronizing CUDA operations fn made, as
+        ``torch.cuda.set_sync_debug_mode('warn')`` reports them '''
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, [str(w.message) for w in seen
+                 if 'called a synchronizing CUDA operation' in str(w.message)]
+
+
+@pytest.mark.parametrize('mesh', [None, (1, 2), (2, 2)])
+def test_hit_matchers_wait_on_the_host_once(cuda, mesh):
+    ''' the screening matcher, and the sharded one on a mesh that repeats
+        the card, wait on the host once per batch (the readback of the
+        triplets and their count) and call no torch.nonzero; the same
+        triplets as the CPU's '''
+    seqs, codes, rl, _ = case(77, 4, B=96, Lpad=64, nseq=9)
+    batch = reader.RecordBatch(codes, rl, np.zeros(len(codes), np.int64),
+                               None)
+    if mesh is None:
+        matcher = match_pallas.PallasMatcher(seqs, 2, 25, cuda)
+    else:
+        matcher = parallel.ShardedMatcher(
+            seqs, 2, 25, parallel.make_mesh(*mesh, [cuda] * 4), b_local=48)
+    want = match_pallas.PallasMatcher(seqs, 2, 25, 'cpu').match_batch(batch)
+    assert len(want) > 0
+    matcher.match_batch(batch)           # bank states, uploads, the build
+    nonzero = torch.nonzero
+
+    def no_nonzero(*a, **kw):
+        raise AssertionError('torch.nonzero on the hit path')
+    torch.nonzero = no_nonzero
+    try:
+        before = tps.hit_triplets.launches
+        got, waits = _host_waits(lambda: matcher.match_batch(batch))
+    finally:
+        torch.nonzero = nonzero
+    assert tps.hit_triplets.launches == before + 1
+    assert len(waits) == 1, waits
+    np.testing.assert_array_equal(_tri_set(got), _tri_set(want))
