@@ -2,10 +2,12 @@
 '''
 Smoke run of kvarq_tpu_torch on one NVIDIA GPU: builds the CUDA kernels
 (the candidate screen K1, and the exact scoring S1 with the hit
-extraction H1 in one source: one nvcc each, at the same time) from this
-checkout, checks each against its plain PyTorch version at the main-path
-shapes (S1 dense, gathered and above gather_k, with its phase split; H1
-dense and gathered as sorted triplet sets),
+extraction H1 in one source, all three on one pipeline: one nvcc per
+source, at the same time) from this checkout, checks each against its
+plain PyTorch version at the main-path shapes and times it beside its
+bound (K1 with the fp16 and int8 one-hot products alone as context; S1
+dense, gathered and above gather_k, with its phase split; H1 dense and
+gathered as sorted triplet sets),
 drives ``kvarq scan``'s coverage path (``countseqs``)
 and its hit-list path (``findseqs``, ``scan -H/-x``) over the 2M-read
 bench corpus with and without the k-mer sieve and over a hit-dense
@@ -44,8 +46,7 @@ import time
 import numpy as np
 
 # with nothing of the repo beside this file, this import fails (exit 1)
-from kvarq_tpu_torch.tools.s1_bench import (HBM_TBPS, INT8_TOPS, cuda_time_ms,
-                                            ptxas_summary, roofline)
+from kvarq_tpu_torch.tools.s1_bench import cuda_time_ms, ptxas_summary
 
 HERE = os.path.abspath(os.path.dirname(__file__))
 WORK = os.path.join(HERE, 'build', 'kvarq_tpu_torch', 'smoke')
@@ -123,15 +124,29 @@ def say(phase, msg):
     print('[%s] %s' % (phase, msg), flush=True)
 
 
-def k1_bound(B, Lpad, state):
-    ''' K1's bound at this call: the one-hot product's 2 * B * Lpad * nch
-        * Qp int8 operations at the card's int8 peak, or the bytes of its
-        inputs read once and its output written once at the memory rate,
-        whichever is longer '''
-    ops = 2.0 * B * Lpad * state.nch * state.Qp
-    nbytes = (B * Lpad + 4 * B + state.bank.numel() + state.qmeta.numel() * 4
-              + 4 * B)
-    return roofline(ops, nbytes)
+def k1_phase(tps, codes, rl, state, e, mo, bank, card):
+    '''
+    phase (b), K1 on the main-path batch against its plain version
+    (``cand_counts_ref``), exactly (``tools/s1_bench.py`` ``measure_k1``):
+    timed with CUDA events, median of 5, in turns plain, kernel, kernel,
+    plain, and under the profiler (the kernel alone), beside its bound and,
+    as context, the fp16 and int8 one-hot products alone.
+
+    :returns: measure_k1's entry
+    '''
+    from kvarq_tpu_torch.tools import s1_bench
+    try:
+        out = s1_bench.measure_k1(tps, codes, rl, state, e, mo)
+    except AssertionError as err:
+        raise SmokeFailure('%s at the main-path shape' % err)
+    check(out['candidates'] > 0, 'K1: no candidates on the main-path batch')
+    check(out['int_mm_ms'] is not None, 'torch._int_mm refused the int8 '
+          'product: %s' % out['int_mm_error'])
+    say('b', 'K1 == cand_counts_ref exactly at B=%d Lpad=%d G=%d Q=%d Qp=%d '
+        'nch=%d; %s; %s' % (codes.shape[0], codes.shape[1], bank.G, bank.Q,
+                            state.Qp, state.nch, s1_bench.describe_k1(out),
+                            card))
+    return out
 
 
 def s1_phase(tps, native_cuda, codes, rl, state, e, mo, mm_ms, card):
@@ -1589,43 +1604,12 @@ def main():
     codes = torch.from_numpy(batch.codes).to(dev)
     rl = torch.from_numpy(batch.rl.astype(np.int32)).to(dev)
     e, mo = SCAN['maxerrors'], SCAN['minoverlap']
-    got = tps.cand_counts(codes, rl, state, e, mo, state.nch)
-    want = tps.cand_counts_ref(codes, rl, state, e, mo, state.nch)
-    torch.cuda.synchronize()
-    max_err = int((got - want).abs().max())
-    check(max_err == 0, 'K1 differs from cand_counts_ref at the main-path '
-          'shape (max abs err %d)' % max_err)
     say('b', 'ptxas -v of cand_screen.cu: %s' % ptxas_summary(
         native_cuda.ptxas_report.get('cand_screen.cu', '')))
-    # plain (the kernel's plain version), kernel, kernel, plain
-    ref_ms = cuda_time_ms(
-        lambda: tps.cand_counts_ref(codes, rl, state, e, mo, state.nch))
-    k_ms = cuda_time_ms(
-        lambda: tps.cand_counts(codes, rl, state, e, mo, state.nch))
-    k_ms2 = cuda_time_ms(
-        lambda: tps.cand_counts(codes, rl, state, e, mo, state.nch))
-    ref_ms2 = cuda_time_ms(
-        lambda: tps.cand_counts_ref(codes, rl, state, e, mo, state.nch))
-    # context, not the same function (no screen): the fp16 product of the
-    # one-hot reads with the bank's K alone, as cuBLAS runs it
-    flat = tps.one_hot(codes, state.nch, state.K.dtype).reshape(B, -1)
-    mm_ms = cuda_time_ms(lambda: flat @ state.K)
-    del flat
-    k1b = k1_bound(B, Lpad, state)
-    say('b', 'K1 == cand_counts_ref exactly at B=%d Lpad=%d G=%d Q=%d Qp=%d '
-        'nch=%d (%d candidates); kernel %.3f / %.3f ms, plain %.3f / %.3f ms '
-        '(median of 5 each, in turns plain, kernel, kernel, plain); the fp16 '
-        'torch.matmul of the one-hot product alone %.3f ms (context: no '
-        'screen); bound %.3f ms (%.3g int8 operations at %.0f TOP/s, %.3g '
-        'bytes at %.2f TB/s: %s-bound), the kernel at %.1f%% of it; %s'
-        % (B, Lpad, bank.G, bank.Q, state.Qp, state.nch,
-           int((got > 0).sum()), k_ms, k_ms2, ref_ms, ref_ms2, mm_ms,
-           k1b['bound_ms'], k1b['ops'], INT8_TOPS, k1b['bytes'],
-           HBM_TBPS, k1b['bound_by'], 100 * k1b['bound_ms'] / k_ms, card))
-    ref_ms = min(ref_ms, ref_ms2)
-    k_ms = min(k_ms, k_ms2)
+    k1 = k1_phase(tps, codes, rl, state, e, mo, bank, card)
+    mm_ms = k1['matmul_ms']
     s1 = s1_phase(tps, native_cuda, codes, rl, state, e, mo, mm_ms, card)
-    h1 = h1_phase(tps, codes, rl, state, e, mo, mm_ms, int((want > 0).sum()),
+    h1 = h1_phase(tps, codes, rl, state, e, mo, mm_ms, k1['candidates'],
                   card)
 
     rng = np.random.RandomState(5)
@@ -1681,7 +1665,7 @@ def main():
             'bank split in 2 (B=%d, G=%d, Qp=%d, e=0 and 3, %d candidates); '
             'kernel %.3f ms, plain %.3f ms' % (j, B5, sbank5.G, sbank5.Qp,
                                                n5, k5, p5))
-    del codes, rl, got, want, c5, r5, state5, sbank5
+    del codes, rl, c5, r5, state5, sbank5
 
     stamp(stamps, 'd')
     # (d) oracle gate on the first 8192 reads, both sieve modes (this also
@@ -1773,8 +1757,8 @@ def main():
     # wall time includes the profiler's own cost)
     for sieve in ('off', 'auto'):
         engine.config(device='cuda', sieve=sieve, **SCAN)
-        wall, busy, k1, s1t, _, top = traced_scan(engine.countseqs, path,
-                                                  seqs)
+        wall, busy, k1t, s1t, _, top = traced_scan(engine.countseqs, path,
+                                                   seqs)
         if busy == 0:
             say('trace', 'sieve=%s: wall %.3fs; kernel time not measured '
                 '(the profiler saw no device activity)' % (sieve, wall))
@@ -1782,7 +1766,7 @@ def main():
         say('trace', 'sieve=%s: wall %.3fs, kernel time on the card %.3fs '
             '(%.1f%% busy), K1 %.3fs, S1 %.3fs (%.1f%% of the kernel time); '
             'longest: %s' % (
-                sieve, wall, busy, 100 * busy / wall, k1, s1t,
+                sieve, wall, busy, 100 * busy / wall, k1t, s1t,
                 100 * s1t / busy, '; '.join('%s %.1f ms' % kv for kv in top)))
 
     stamp(stamps, 'g')
@@ -1826,10 +1810,10 @@ def main():
         '8192 reads both equal the numpy oracle tuple for tuple (%d hits)'
         % (len(hit['off']['hits']), len(found['hits'])))
     engine.config(device='cuda', sieve='off', **SCAN)
-    wall, busy, k1, _, h1t, top = traced_scan(engine.findseqs, path, seqs)
+    wall, busy, k1t, _, h1t, top = traced_scan(engine.findseqs, path, seqs)
     say('trace', 'findseqs sieve=off: wall %.3fs, kernel time on the card '
         '%.3fs (%.1f%% busy), K1 %.3fs, H1 %.3fs; longest: %s' % (
-            wall, busy, 100 * busy / max(wall, 1e-9), k1, h1t,
+            wall, busy, 100 * busy / max(wall, 1e-9), k1t, h1t,
             '; '.join('%s %.1f ms' % kv for kv in top)))
     hit_off = hit['off']        # (h) and (i) hold the mesh and GUI to it
     del hit
@@ -1904,11 +1888,15 @@ def main():
         'source': 'kvarq_tpu_torch/csrc/cand_screen.cu',
         'replaces': 'kvarq_tpu/engine/pallas_scan.py:151',
         'launches': launches, 'launches_by_path': by_path,
-        'max_abs_err': max_err, 'ms': k_ms, 'plain_ms': ref_ms,
-        'bound_ms': k1b['bound_ms'], 'bound_by': k1b['bound_by'],
-        # no single PyTorch call computes the screen; matmul_ms is the fp16
-        # one-hot product alone, as context
-        'library_ms': None, 'matmul_ms': mm_ms}, {
+        'max_abs_err': k1['max_abs_err'], 'ms': k1['ms'],
+        'kernel_ms': k1['kernel_ms'], 'plain_ms': k1['plain_ms'],
+        'bound_ms': k1['bound_ms'], 'bound_by': k1['bound_by'],
+        # no PyTorch call computes the screen: the library column holds the
+        # int8 one-hot product alone (torch._int_mm, no screen) as context,
+        # matmul_ms the fp16 one
+        'library_ms': k1['int_mm_ms'],
+        'library_call': 'torch._int_mm of the one-hot product alone',
+        'matmul_ms': mm_ms}, {
         'name': 'score_step', 'route': 'cuda',
         'source': 'kvarq_tpu_torch/csrc/score_step.cu',
         # not a TPU kernel: the exact scoring kvarq_tpu leaves to XLA

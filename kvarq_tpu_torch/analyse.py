@@ -279,7 +279,7 @@ class Analyser:
             self.scantime = time.time() - started
             self.update_coverages()
         else:
-            from kvarq_tpu_torch.engine.tensor_scan import fold_into_coverage
+            from kvarq_tpu_torch.engine.encode import fold_into_coverage
             ret = engine.countseqs(self.fastq.filenames(), seqs)
             self.stats = ret['stats']
             self.hits = self.hitseqs = None

@@ -29,12 +29,11 @@ import threading
 import time
 from pprint import pprint
 
-from kvarq_tpu_torch import VERSION, analyse, device, engine, genes, parallel
+from kvarq_tpu_torch import VERSION, analyse, engine, genes
 from kvarq_tpu_torch.config import default_config
 from kvarq_tpu_torch.fastq import Fastq, FastqFileFormatException
 from kvarq_tpu_torch.log import (appendlog, format_traceback, lo, set_debug,
                                  set_warning)
-from kvarq_tpu_torch.parallel import multihost
 from kvarq_tpu_torch.profiling import ScanProfiler
 from kvarq_tpu_torch.testsuites import (discover_testsuites, load_testsuites,
                                         update_testsuites)
@@ -200,8 +199,13 @@ def _backend(args, choices=BACKENDS):
         backend = 'cuda'
     dev = 'cpu' if backend == 'cpu' else 'cuda'
     if backend != 'numpy':
+        # torch is imported where a device is selected: the numpy backend
+        # and the commands that read result files never import it
         try:
+            from kvarq_tpu_torch import device
             device.select(dev)
+        except ImportError as e:
+            _fail('--backend %s needs torch (%s)' % (backend, e))
         except RuntimeError as e:
             _fail(e)
     return backend, dev
@@ -228,6 +232,7 @@ def cmd_scan(args):
     mesh = None
     if args.mesh:
         # checked here, so that a bad spec exits before the scan starts
+        from kvarq_tpu_torch import parallel
         try:
             mesh = parallel.parse_mesh(args.mesh, dev)
         except (RuntimeError, ValueError) as e:
@@ -345,7 +350,8 @@ def cmd_batch(args):
         _refuse_overwrite(args.json)
 
     from kvarq_tpu_torch.engine import reader
-    from kvarq_tpu_torch.engine.tensor_scan import fold_into_coverage
+    from kvarq_tpu_torch.engine.encode import fold_into_coverage
+    from kvarq_tpu_torch.parallel import multihost
     pid, nproc = multihost.initialize()
     lo.info('batch scan: %d files over %d process(es)'
             % (len(args.fastq), nproc))
@@ -409,6 +415,7 @@ def _batch_per_sample(args, testsuites):
         rename) and ``--resume`` skips samples whose output already decodes
         as a kvarq result.  Process 0 ends by summarizing every result into
         ``summary.csv`` (the table of ``kvarq summarize``). '''
+    from kvarq_tpu_torch.parallel import multihost
     outdir = args.json
     pid, nproc = multihost.initialize()
     os.makedirs(outdir, exist_ok=True)

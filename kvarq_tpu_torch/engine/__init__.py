@@ -263,7 +263,7 @@ def countseqs(fname, seqs):
     '''
     tensorized scan: accumulates per-template base counts on the device
     (no hit list).  Statistics are those of :py:func:`findseqs`;
-    :py:func:`kvarq_tpu_torch.engine.tensor_scan.fold_into_coverage` maps
+    :py:func:`kvarq_tpu_torch.engine.encode.fold_into_coverage` maps
     the base counts onto :py:class:`~kvarq_tpu_torch.analyse.Coverage`
     objects.  On the numpy path (the ``backend`` key) the base counts are
     those of the numpy hit list (:py:func:`_basecounts_from_hits`).

@@ -66,3 +66,51 @@ def pad_batch(codes, rl, n, Lpad):
     rl = np.concatenate([rl.astype(np.int32, copy=False),
                          np.zeros(pad, dtype=np.int32)])
     return codes, rl
+
+
+# complement channel permutation: A<->T, C<->G, N->N (genes.py COMPLEMENT)
+COMPL_PERM = np.array([T, G, C, A, N])
+
+# channel enumeration in sorted-character order 'ACGNT', so mutation strings
+# come out pre-sorted exactly like Coverage.serialize() emits them
+# (reference analyse.py:162-163 sorts the observed bases)
+_SORTED_CHANNELS = sorted(range(NBASE), key=lambda c: BASE_CHARS[c])
+
+
+def fold_into_coverage(cov, plus_bc, minus_bc):
+    '''
+    fill a :py:class:`kvarq_tpu_torch.analyse.Coverage` from tensorized base
+    counts: ``plus_bc``/``minus_bc`` are [5, S] hit-overlap base counts in
+    scanned-strand coordinates for the plus/minus template strands.
+
+    Reproduces Coverage.apply_hit (reference analyse.py:57-78): minus-strand
+    counts are mapped back to plus coordinates via index reversal + base
+    complement; depth is the channel sum; every read base differing from the
+    template base becomes a mutation entry.  Mutation strings are built in
+    sorted order -- in-memory ordering differs from the (observation-ordered)
+    hit path but serializes identically and all statistics
+    (bases_at/fractions_at/...) are order-insensitive.
+    '''
+    total = np.asarray(plus_bc, dtype=np.int64).copy()
+    if minus_bc is not None:
+        total += np.asarray(minus_bc, dtype=np.int64)[COMPL_PERM][:, ::-1]
+
+    depth = total.sum(axis=0)
+    cov.coverage = [int(x) for x in depth]
+
+    tmpl = encode_template(cov.plus_seq.bases)
+    mutations = {}
+    # mutation counts = all channels except the template's own base
+    mut_total = depth - np.where(
+        tmpl < NBASE,
+        total[np.minimum(tmpl, NBASE - 1), np.arange(len(tmpl))], 0)
+    for j in np.flatnonzero(mut_total):
+        parts = []
+        for c in _SORTED_CHANNELS:
+            if c == tmpl[j]:
+                continue
+            n = int(total[c, j])
+            if n:
+                parts.append(BASE_CHARS[c] * n)
+        mutations[int(j)] = ''.join(parts)
+    cov.mutations = mutations

@@ -12,8 +12,9 @@ the exact scoring of one batch of reads.
   :py:class:`~kvarq_tpu_torch.engine.match_xla._Bank` or from the JAX
   package's numpy bank state.
 - :py:func:`cand_counts` is the candidate screen: on a CUDA tensor it
-  launches the hand-written kernel csrc/cand_screen.cu (the port of the
-  TPU kernel ``_cand_kernel``), on a CPU tensor its plain version
+  launches the hand-written kernel csrc/cand_screen.cu (K1, the port of
+  the TPU kernel ``_cand_kernel``: S1's pipeline with a drain that counts
+  each read's passing columns), on a CPU tensor its plain version
   :py:func:`cand_counts_ref`.
 - :py:func:`score_candidates` is the exact scoring of a list of rows:
   on a CUDA tensor the hand-written kernel csrc/score_step.cu (S1: the
@@ -156,12 +157,12 @@ def _kernel_bytes(bpad, nch):
     return out
 
 
-# S1's schedule (csrc/score_step.cu): shift columns per column group, whose
-# bank windows and screen terms are staged together, and MMA stages (128
-# columns each) per group
+# the schedule of S1, H1 and K1 (csrc/kvq_s1_pipeline.h): shift columns per
+# column group, whose bank windows and screen terms are staged together,
+# and MMA stages (128 columns each) per group
 S1_GROUP = 512
 S1_STAGES = 4
-# screen terms past Qp: a threshold no count reaches (score_step.cu NEVER)
+# screen terms past Qp: a threshold no count reaches (at the clamp)
 S1_NEVER = 1 << 29
 
 
@@ -345,7 +346,8 @@ def _cand_lib():
     fn = lib.kvq_cand_screen
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, i, vp, vp, i, i, i, i, i, i, vp]
+        fn.argtypes = [vp, vp, vp, ctypes.c_long, vp, vp, i, i, i, i, i, i,
+                       vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -360,7 +362,8 @@ def cand_counts(codes, rl, state, maxerrors, minoverlap, nch):
     :param rl: int32 ``[B]`` read lengths (0 for padding rows)
 
     On a CPU tensor this is :py:func:`cand_counts_ref`.  On a CUDA tensor
-    it launches csrc/cand_screen.cu on the current stream, or raises;
+    it launches csrc/cand_screen.cu (K1: one block per SM, reading the
+    state's ``onehot`` and ``sterms``) on the current stream, or raises;
     ``cand_counts.launches`` counts those launches.
     '''
     if codes.device.type == 'cpu':
@@ -368,30 +371,19 @@ def cand_counts(codes, rl, state, maxerrors, minoverlap, nch):
     if codes.device.type != 'cuda':
         raise ValueError('cand_counts: unsupported device %s' % codes.device)
     _check_nch(state, nch)
+    _check_args('cand_counts', codes, rl, state)
     B, Lpad = codes.shape
-    for name, t, dtype, shape in (
-            ('codes', codes, torch.uint8, (B, state.Lpad)),
-            ('rl', rl, torch.int32, (B,)),
-            ('bank', state.bank, torch.uint8, state.bank.shape),
-            ('qmeta', state.qmeta, torch.int32, (8, state.Qp))):
-        if t.device != codes.device or t.dtype != dtype \
-                or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
-            raise ValueError(
-                'cand_counts: %s must be a contiguous %s tensor of shape %s '
-                'on %s (got %s %s on %s)' % (
-                    name, dtype, tuple(shape), codes.device, t.dtype,
-                    tuple(t.shape), t.device))
-    if Lpad % 4 or codes.data_ptr() % 4 or state.bank.numel() % 4:
-        raise ValueError('cand_counts: Lpad, the codes pointer and the bank '
-                         'length must be multiples of 4')
+    if Lpad % 4 or codes.data_ptr() % 4:
+        raise ValueError('cand_counts: Lpad and the codes pointer must be '
+                         'multiples of 4')
     out = torch.zeros(B, dtype=torch.int32, device=codes.device)
     if B == 0:
         return out
     # the launch goes to the current device's context: make it codes'
     with torch.cuda.device(codes.device):
         err = _cand_lib()(
-            codes.data_ptr(), rl.data_ptr(), state.bank.data_ptr(),
-            state.bank.numel() // 4, state.qmeta.data_ptr(), out.data_ptr(),
+            codes.data_ptr(), rl.data_ptr(), state.onehot.data_ptr(),
+            state.onehot.shape[1], state.sterms.data_ptr(), out.data_ptr(),
             B, Lpad, state.Qp, nch, maxerrors, minoverlap,
             torch.cuda.current_stream(codes.device).cuda_stream)
     if err:
@@ -478,9 +470,10 @@ def _score_lib():
     return fn
 
 
-def _check_score_args(codes, rl, state, idx, count):
-    ''' the types, shapes and devices :py:func:`score_candidates` takes on
-        either device; raises ValueError '''
+def _check_args(what, codes, rl, state, idx=None, count=None):
+    ''' the types, shapes and devices that the kernels' wrappers
+        (``what``: :py:func:`cand_counts`, :py:func:`score_candidates`,
+        :py:func:`hit_triplets`) take; raises ValueError '''
     B = codes.shape[0] if codes.dim() == 2 else -1
     SP, DP = s1_depth(state.Lpad, state.nch)
     ngroups = -(-state.Qp // S1_GROUP)
@@ -497,16 +490,16 @@ def _check_score_args(codes, rl, state, idx, count):
         args.append(('idx', idx, torch.int32, (min(len(idx), B),)))
     if count is not None:
         if idx is None or count.numel() != 1:
-            raise ValueError('score_candidates: a count is one element, '
-                             'given with an idx')
+            raise ValueError('%s: a count is one element, given with an idx'
+                             % what)
         args.append(('count', count, torch.int32, tuple(count.shape)))
     for name, t, dtype, shape in args:
         if t.device != codes.device or t.dtype != dtype \
                 or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(
-                'score_candidates: %s must be a contiguous %s tensor of '
-                'shape %s on %s (got %s %s on %s)' % (
-                    name, dtype, shape, codes.device, t.dtype,
+                '%s: %s must be a contiguous %s tensor of shape %s on %s '
+                '(got %s %s on %s)' % (
+                    what, name, dtype, shape, codes.device, t.dtype,
                     tuple(t.shape), t.device))
 
 
@@ -533,7 +526,7 @@ def score_candidates(codes, rl, state, maxerrors, minoverlap, idx=None,
     kernel's grid (one block per SM) does not depend on it.
     ``score_candidates.launches`` counts those launches.
     '''
-    _check_score_args(codes, rl, state, idx, count)
+    _check_args('score_candidates', codes, rl, state, idx, count)
     if codes.device.type == 'cpu':
         return score_candidates_ref(codes, rl, state, maxerrors, minoverlap,
                                     idx, count, rows)
@@ -582,7 +575,7 @@ def score_candidates(codes, rl, state, maxerrors, minoverlap, idx=None,
 score_candidates.launches = 0
 
 # the entries of score_candidates' profile buffer (PROF_* of
-# csrc/kvq_onehot_mma.h), clock64() cycles summed over warpgroups
+# csrc/kvq_s1_pipeline.h), clock64() cycles summed over warpgroups
 PROFILE_PHASES = ('build', 'mma', 'screen', 'drain', 'wait', 'total',
                   'stage', 'stage_wait')
 
@@ -616,8 +609,8 @@ def triplets_to_host(buf, n):
 
 
 def _check_hit_args(codes, rl, state, idx, count, row_ids, cap):
-    ''' :py:func:`_check_score_args` and the extraction's own arguments '''
-    _check_score_args(codes, rl, state, idx, count)
+    ''' :py:func:`_check_args` and the extraction's own arguments '''
+    _check_args('hit_triplets', codes, rl, state, idx, count)
     B = codes.shape[0]
     if row_ids is not None and (
             row_ids.device != codes.device or row_ids.dtype != torch.int32

@@ -2,9 +2,12 @@
 Scan driver of the port (counterpart of kvarq_tpu/engine/tensor_scan.py):
 the mode gating :py:func:`mode_weights`, the accumulating single-device
 :py:class:`TensorScanner`, and copies of kvarq_tpu's numpy helpers
-:py:func:`build_bank`, :py:func:`default_gather_k` and
-:py:func:`fold_into_coverage` (base counts into a
-:py:class:`~kvarq_tpu_torch.analyse.Coverage`).
+:py:func:`build_bank` and :py:func:`default_gather_k`.  kvarq_tpu's
+``fold_into_coverage`` (base counts into a
+:py:class:`~kvarq_tpu_torch.analyse.Coverage`) is the port's
+:py:func:`kvarq_tpu_torch.engine.encode.fold_into_coverage`, in a module
+without torch, so that a scan on the host's numpy matcher never imports
+torch.
 '''
 
 import os
@@ -250,51 +253,3 @@ class TensorScanner:
                 pos = tstart[t]
                 per_template[t] += acc[:, pos:pos + len(s)]
         return per_template
-
-
-# complement channel permutation: A<->T, C<->G, N->N (genes.py COMPLEMENT)
-COMPL_PERM = np.array([encode.T, encode.G, encode.C, encode.A, encode.N])
-
-# channel enumeration in sorted-character order 'ACGNT', so mutation strings
-# come out pre-sorted exactly like Coverage.serialize() emits them
-# (reference analyse.py:162-163 sorts the observed bases)
-_SORTED_CHANNELS = sorted(range(encode.NBASE), key=lambda c: encode.BASE_CHARS[c])
-
-
-def fold_into_coverage(cov, plus_bc, minus_bc):
-    '''
-    fill a :py:class:`kvarq_tpu_torch.analyse.Coverage` from tensorized base
-    counts: ``plus_bc``/``minus_bc`` are [5, S] hit-overlap base counts in
-    scanned-strand coordinates for the plus/minus template strands.
-
-    Reproduces Coverage.apply_hit (reference analyse.py:57-78): minus-strand
-    counts are mapped back to plus coordinates via index reversal + base
-    complement; depth is the channel sum; every read base differing from the
-    template base becomes a mutation entry.  Mutation strings are built in
-    sorted order -- in-memory ordering differs from the (observation-ordered)
-    hit path but serializes identically and all statistics
-    (bases_at/fractions_at/...) are order-insensitive.
-    '''
-    total = np.asarray(plus_bc, dtype=np.int64).copy()
-    if minus_bc is not None:
-        total += np.asarray(minus_bc, dtype=np.int64)[COMPL_PERM][:, ::-1]
-
-    depth = total.sum(axis=0)
-    cov.coverage = [int(x) for x in depth]
-
-    tmpl = encode.encode_template(cov.plus_seq.bases)
-    mutations = {}
-    # mutation counts = all channels except the template's own base
-    mut_total = depth - np.where(
-        tmpl < encode.NBASE,
-        total[np.minimum(tmpl, encode.NBASE - 1), np.arange(len(tmpl))], 0)
-    for j in np.flatnonzero(mut_total):
-        parts = []
-        for c in _SORTED_CHANNELS:
-            if c == tmpl[j]:
-                continue
-            n = int(total[c, j])
-            if n:
-                parts.append(encode.BASE_CHARS[c] * n)
-        mutations[int(j)] = ''.join(parts)
-    cov.mutations = mutations

@@ -9,13 +9,13 @@ torch.profiler records the host ops of the thread that starts it, so the
 trace is a context (:py:meth:`ScanProfiler.trace`) entered by the thread
 that runs the scan.  Unlike kvarq_tpu's, a trace that cannot start
 raises instead of warning: a profile without the device would hide it.
+torch is imported only by a trace, so a scan without ``--profile`` on the
+host's numpy matcher runs without it.
 '''
 
 import os
 import time
 from contextlib import contextmanager
-
-import torch
 
 from kvarq_tpu_torch.log import lo
 
@@ -30,7 +30,7 @@ class ScanProfiler:
 
     def __init__(self, trace_dir=None, device='cpu'):
         self.trace_dir = trace_dir
-        self.device = torch.device(device)
+        self.device = device
         self.phases = {}
         self._t0 = None
 
@@ -60,17 +60,19 @@ class ScanProfiler:
         if not self.trace_dir:
             yield
             return
+        import torch
         from torch.profiler import ProfilerActivity, profile
+        device = torch.device(self.device)
         activities = [ProfilerActivity.CPU]
-        if self.device.type == 'cuda':
+        if device.type == 'cuda':
             activities.append(ProfilerActivity.CUDA)
         os.makedirs(self.trace_dir, exist_ok=True)
         lo.info('torch.profiler trace (%s) -> %s' % (
             ', '.join(a.name for a in activities), self.trace_dir))
         with profile(activities=activities) as prof:
             yield
-            if self.device.type == 'cuda':
-                torch.cuda.synchronize(self.device)
+            if device.type == 'cuda':
+                torch.cuda.synchronize(device)
         path = os.path.join(self.trace_dir, TRACE_FILE)
         prof.export_chrome_trace(path)
         lo.info('trace written to %s (open with Perfetto or chrome://tracing)'

@@ -5,7 +5,10 @@ main path's shape: exactness against its plain version
 (``pallas_scan.score_candidates_ref``), its time beside its bound, and
 where its time goes inside the kernel; and H1, the exact hit extraction
 of the same source (``kvq_hit_extract``), dense and gathered, against
-``pallas_scan.hit_triplets_ref`` beside its bound.
+``pallas_scan.hit_triplets_ref`` beside its bound.  With ``--k1``: K1,
+the candidate screen (csrc/cand_screen.cu, ``cand_counts``) alone,
+against ``cand_counts_ref``, beside its bound and, as context, the fp16
+and int8 one-hot products alone (``torch.matmul``, ``torch._int_mm``).
 
 Methodology: the MTBC bank (Lpad 128, nch 4, 2 errors, minoverlap 25);
 one batch of ``--batch`` reads (16,384) of ``--readlen`` bases, a
@@ -26,10 +29,16 @@ warpgroup's ``clock64()`` cycles per phase (``PROFILE_PHASES``), as
 shares of the consumer warpgroups' total.  H1 takes the forms ``dense``
 and ``gathered`` of the same batch, compared as sorted triplet sets and
 timed the same way (it has no profile buffer); its bound adds the
-triplets written to the product's.
+triplets written to the product's.  K1 is timed the same way on the
+same batch (``--k1``; its bound counts the staged one-hot bank and the
+screen terms it reads and the counts it writes).  The ``--k1`` mode uses
+only the port's public functions, so an older checkout's K1 is timed by
+this file with that checkout first on the path, in turns with this one:
+
+    PYTHONPATH=old python kvarq_tpu_torch/tools/s1_bench.py --k1
 
 Usage:
-    python -m kvarq_tpu_torch.tools.s1_bench [--batch 16384] [--deep]
+    python -m kvarq_tpu_torch.tools.s1_bench [--batch 16384] [--deep] [--k1]
 
 The last line of the output is one JSON object with the numbers and the
 device they were taken on.
@@ -108,6 +117,93 @@ def s1_bound(rows, Lpad, state, gathered):
               + state.bank.numel() + 4 * state.qmeta.numel()
               + 4 * state.tseg.numel() + 8 * (5 * state.G + 2 * (state.T + 1)))
     return roofline(ops, nbytes)
+
+
+def k1_bound(B, Lpad, state):
+    ''' K1's bound at this call: the one-hot product's 2 * B * Lpad * nch
+        * Qp int8 operations at the card's int8 peak, or its bytes at the
+        memory rate -- the codes and read lengths, the staged one-hot bank
+        (``state.onehot``) and the screen terms (``state.sterms``) read
+        once, the int32 counts written once -- whichever is longer '''
+    ops = 2.0 * B * Lpad * state.nch * state.Qp
+    nbytes = (B * (Lpad + 4) + state.onehot.numel()
+              + 4 * state.sterms.numel() + 4 * B)
+    return roofline(ops, nbytes)
+
+
+def int8_product_ms(tps, codes, state, reps=5):
+    ''' the int8 one-hot product alone, ``torch._int_mm`` of the one-hot
+        reads ``[B, Lpad * nch]`` and ``K`` (int32 out, no screen), the
+        faster of K row-major and column-major; ``(ms, None)``, or
+        ``(None, the error)`` where the call takes neither '''
+    B = codes.shape[0]
+    a = tps.one_hot(codes, state.nch, torch.int8).reshape(B, -1)
+    k = state.K.to(torch.int8)
+    times, err = [], None
+    for b in (k, k.t().contiguous().t()):
+        try:
+            times.append(cuda_time_ms(lambda: torch._int_mm(a, b), reps))
+        except RuntimeError as e:
+            err = str(e).splitlines()[0]
+    return (min(times), None) if times else (None, err)
+
+
+def measure_k1(tps, codes, rl, state, e, mo, reps=5):
+    ''' K1 (``cand_counts``) on one batch: exactness against
+        ``cand_counts_ref`` (raises AssertionError), times (CUDA events,
+        median of ``reps``, plain, kernel, kernel, plain; the kernel alone
+        under the profiler), bound and, as context, the fp16 one-hot
+        product alone as cuBLAS runs it (``matmul_ms``) and the int8 one
+        (``int_mm_ms``, :py:func:`int8_product_ms`).
+        :returns: ``{rows, candidates, ms, kernel_ms, plain_ms, ms_runs,
+        bound_ms, bound_by, ops, bytes, max_abs_err, matmul_ms, int_mm_ms,
+        int_mm_error}`` '''
+    B, Lpad = codes.shape
+    nch = state.nch
+    got = tps.cand_counts(codes, rl, state, e, mo, nch)
+    want = tps.cand_counts_ref(codes, rl, state, e, mo, nch)
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max())
+    assert err == 0, ('K1 differs from cand_counts_ref (max abs err %d)'
+                      % err)
+    candidates = int((want > 0).sum())
+    del got, want
+
+    def kernel():
+        tps.cand_counts(codes, rl, state, e, mo, nch)
+
+    def plain():
+        tps.cand_counts_ref(codes, rl, state, e, mo, nch)
+    times = [cuda_time_ms(f, reps) for f in (plain, kernel, kernel, plain)]
+    flat = tps.one_hot(codes, nch, state.K.dtype).reshape(B, -1)
+    mm_ms = cuda_time_ms(lambda: flat @ state.K, reps)
+    del flat
+    int_mm_ms, int_mm_error = int8_product_ms(tps, codes, state, reps)
+    b = k1_bound(B, Lpad, state)
+    return dict(rows=B, candidates=candidates, ms=min(times[1:3]),
+                kernel_ms=kernel_ms(kernel, 'cand_screen_kernel'),
+                plain_ms=min(times[0], times[3]), ms_runs=times,
+                bound_ms=b['bound_ms'], bound_by=b['bound_by'], ops=b['ops'],
+                bytes=b['bytes'], max_abs_err=err, matmul_ms=mm_ms,
+                int_mm_ms=int_mm_ms, int_mm_error=int_mm_error)
+
+
+def describe_k1(r):
+    ''' one line of :py:func:`measure_k1`'s result '''
+    return ('K1: %d rows, %d candidates, exact; kernel %.4f / %.4f ms, plain '
+            '%.3f / %.3f ms (CUDA events, plain, kernel, kernel, plain); the '
+            'kernel alone %.4f ms (profiler); bound %.4f ms (%.3g int8 '
+            'operations, %.3g bytes: %s-bound), the kernel at %.1f%% of it; '
+            'context, no screen: the fp16 one-hot product alone (torch.matmul)'
+            ' %.4f ms, the int8 one (torch._int_mm) %s' % (
+                r['rows'], r['candidates'], r['ms_runs'][1], r['ms_runs'][2],
+                r['ms_runs'][0], r['ms_runs'][3],
+                r['kernel_ms'] or float('nan'), r['bound_ms'], r['ops'],
+                r['bytes'], r['bound_by'],
+                100 * r['bound_ms'] / (r['kernel_ms'] or r['ms']),
+                r['matmul_ms'], '%.4f ms' % r['int_mm_ms']
+                if r['int_mm_ms'] is not None
+                else 'refused (%s)' % r['int_mm_error']))
 
 
 def ptxas_summary(report):
@@ -310,6 +406,8 @@ def main(argv=None):
     ap.add_argument('--readlen', type=int, default=101)
     ap.add_argument('--deep', action='store_true',
                     help='also score a batch of one planted read repeated')
+    ap.add_argument('--k1', action='store_true',
+                    help='time K1, the candidate screen, alone')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print('s1_bench: no CUDA device', file=sys.stderr)
@@ -327,15 +425,28 @@ def main(argv=None):
                          text=True)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
         else torch.cuda.get_device_name(dev)
-    native_cuda.load_all(['cand_screen.cu', 'score_step.cu'])
-    print('ptxas -v of score_step.cu: %s' % ptxas_summary(
-        native_cuda.ptxas_report.get('score_step.cu', '')))
+    sources = ['cand_screen.cu'] if args.k1 else ['cand_screen.cu',
+                                                  'score_step.cu']
+    native_cuda.load_all(sources)
+    print('ptxas -v of %s: %s' % (sources[-1], ptxas_summary(
+        native_cuda.ptxas_report.get(sources[-1], ''))))
     covs = Analyser().load_coverages(bench.load_mtbc(), spacing=SPACING)
     seqs = [c.plus_seq.bases for c in covs.values()]
     seqs += [c.minus_seq.bases for c in covs.values()]
     windows = bench.template_windows(bench.load_mtbc())
     bank = tensor_scan.build_bank(seqs, LPAD, MINOVERLAP)
     state = tps.device_arrays(bank, len(seqs), dev)
+    if args.k1:
+        codes, rl = synth_batch(windows, args.batch, args.readlen,
+                                args.hitfrac)
+        k1 = measure_k1(tps, torch.from_numpy(codes).to(dev),
+                        torch.from_numpy(rl).to(dev), state, MAXERRORS,
+                        MINOVERLAP)
+        print('%s; %s' % (describe_k1(k1), card), flush=True)
+        print(json.dumps({'metric': 's1_bench_k1', 'device': card,
+                          'B': args.batch, 'Lpad': LPAD, 'Qp': state.Qp,
+                          'nch': state.nch, 'k1': k1}))
+        return 0
     result, hits = {}, {}
     for deep in (False, True) if args.deep else (False,):
         codes, rl = synth_batch(windows, args.batch, args.readlen,

@@ -118,39 +118,106 @@ def _screen_equal(codes, rl, state, nch, params=((2, 25), (0, 25), (3, 8))):
     return found
 
 
+# the hitdiff sweep's errors and overlaps, and the CLI's defaults
+K1_PARAMS = ((0, 3), (1, 25), (2, 25), (3, 8))
+
+
+def _k1_reads(B, Lpad, nch, seqs, seed):
+    ''' planted reads, every fifth given length 0 with its bases kept '''
+    codes, rl = _planted_reads(np.random.RandomState(seed), seqs, B, Lpad,
+                               nch)
+    rl[::5] = 0
+    return codes, rl
+
+
 @pytest.mark.parametrize('bank', ['one tile', 'MTBC'])
 @pytest.mark.parametrize('nch', [4, 5])
 @pytest.mark.parametrize('Lpad', [36, 64, 128, 192])
-@pytest.mark.parametrize('B', [1, 577, 16384])
+@pytest.mark.parametrize('B', [1, 127, 130, 577, 16384])
 def test_tensor_core_screen_equals_ref(cuda, B, Lpad, nch, bank):
-    ''' the tensor-core K1 at every read padding the reader makes (and 36,
-        whose depth is no multiple of 32 bytes), both channel counts, a
-        one-tile and the whole MTBC bank, one read to a main-path batch '''
+    ''' K1 on S1's pipeline (one block per SM, the row tiles of the batch
+        cut into equal ranges of stages) at every read padding the reader
+        makes (and 36, whose depth is no multiple of 32 bytes; 192 with nch
+        5 takes two A tiles), both channel counts, a one-tile and the whole
+        MTBC bank (at Lpad 128 its Qp, 40,064, is no multiple of the
+        512-column group), from one read, one and two past a row tile, to
+        a main-path batch, with reads of length 0 '''
     seqs = _bank_seqs(bank, nch)
     state = tps.device_arrays(tts.build_bank(seqs, Lpad, 25), len(seqs), cuda)
     assert state.nch == nch
     if bank == 'one tile' and Lpad <= 64:
         assert state.Qp == tps.QALIGN
-    rng = np.random.RandomState(B + Lpad + nch)
-    codes, rl = _planted_reads(rng, seqs, B, Lpad, nch)
+    if bank == 'MTBC' and Lpad == 128:
+        assert state.Qp % tps.S1_GROUP
+    codes, rl = _k1_reads(B, Lpad, nch, seqs, B + Lpad + nch)
     found = _screen_equal(torch.from_numpy(codes).to(cuda),
-                          torch.from_numpy(rl).to(cuda), state, nch)
+                          torch.from_numpy(rl).to(cuda), state, nch,
+                          K1_PARAMS)
     assert found > 0 or B == 1
 
 
+@pytest.mark.parametrize('Lpad,n_bank,B', [(128, 2, 577), (192, 3, 130)])
 @pytest.mark.parametrize('nch', [4, 5])
-def test_tensor_core_screen_on_bank_shards(cuda, nch):
-    ''' K1 on each shard of the MTBC bank split in two (common G and Qp,
-        the whole bank's channel count) '''
+def test_tensor_core_screen_on_bank_shards(cuda, nch, Lpad, n_bank, B):
+    ''' K1 on each shard of the MTBC bank split in two or three (common G
+        and Qp, the whole bank's channel count) '''
     seqs = _bank_seqs('MTBC', nch)
-    bank = parallel.ShardBank(seqs, 128, 2, 25)
-    rng = np.random.RandomState(nch)
-    codes, rl = _planted_reads(rng, seqs, 577, 128, nch)
+    bank = parallel.ShardBank(seqs, Lpad, n_bank, 25)
+    codes, rl = _k1_reads(B, Lpad, nch, seqs, nch + Lpad)
     c, r = torch.from_numpy(codes).to(cuda), torch.from_numpy(rl).to(cuda)
-    for j in range(2):
+    for j in range(n_bank):
         state = bank.state(j, cuda)
         assert state.nch == nch and state.Qp == bank.Qp
-        assert _screen_equal(c, r, state, nch) > 0
+        assert _screen_equal(c, r, state, nch, K1_PARAMS) > 0
+
+
+def test_k1_many_launches_on_small_batches(cuda):
+    ''' 240 launches in a row on batches of 1 to 300 reads, the two
+        instantiations and two read paddings in turn (the layout's shared
+        memory grows and shrinks; the attribute is set once per size):
+        every count equals cand_counts_ref '''
+    states = {}
+    for nch in (4, 5):
+        seqs = _bank_seqs('one tile' if nch == 4 else 'MTBC', nch)
+        for Lpad in (64, 192):
+            states[nch, Lpad] = seqs, tps.device_arrays(
+                tts.build_bank(seqs, Lpad, 25), len(seqs), cuda)
+    got, want = [], []
+    before = tps.cand_counts.launches
+    for i in range(240):
+        nch, Lpad = (4, 5)[i % 2], (64, 192)[i // 2 % 2]
+        seqs, state = states[nch, Lpad]
+        codes, rl = _k1_reads(1 + i * 37 % 300, Lpad, nch, seqs, i)
+        c, r = torch.from_numpy(codes).to(cuda), torch.from_numpy(rl).to(cuda)
+        e, mo = K1_PARAMS[i % 4]
+        got.append(tps.cand_counts(c, r, state, e, mo, nch))
+        want.append(tps.cand_counts_ref(c, r, state, e, mo, nch))
+    torch.cuda.synchronize()
+    assert tps.cand_counts.launches == before + 240
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy(),
+                                      err_msg='launch %d' % i)
+    assert sum(int((w > 0).sum()) for w in want) > 0
+
+
+def test_k1_never_waits_on_the_host(cuda):
+    ''' under sync debug mode 'error' (any host read of a device value
+        raises) K1 launches on a main-path batch and on a small one '''
+    seqs = _bank_seqs('MTBC', 4)
+    state = tps.device_arrays(tts.build_bank(seqs, 128, 25), len(seqs), cuda)
+    batches = [tuple(torch.from_numpy(x).to(cuda) for x in
+                     _k1_reads(B, 128, 4, seqs, B)) for B in (16384, 77)]
+    tps.cand_counts(*batches[1], state, 2, 25, 4)     # the library's load
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        got = [tps.cand_counts(c, r, state, 2, 25, 4) for c, r in batches]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for (c, r), g in zip(batches, got):
+        want = tps.cand_counts_ref(c, r, state, 2, 25, 4)
+        np.testing.assert_array_equal(g.cpu().numpy(), want.cpu().numpy())
+        assert (want > 0).any()
 
 
 def test_cand_counts_on_a_device_that_is_not_current(cuda):

@@ -28,6 +28,7 @@ from kvarq_tpu.engine import tensor_scan as jts
 from kvarq_tpu.engine.reader import RecordBatch
 from kvarq_tpu_torch import bench as tbench
 from kvarq_tpu_torch import parallel as tparallel
+from kvarq_tpu_torch.engine import encode as tencode
 from kvarq_tpu_torch.engine import match_numpy as tmatch_numpy
 from kvarq_tpu_torch.engine import pallas_scan as tps
 from kvarq_tpu_torch.engine import tensor_scan as tts
@@ -316,7 +317,7 @@ def test_fold_into_coverage_matches_kvarq_tpu():
     jc = janalyse.Coverage(JSequence(bases, 5, 5))
     tc = tanalyse.Coverage(TSequence(bases, 5, 5))
     jts.fold_into_coverage(jc, plus, minus)
-    tts.fold_into_coverage(tc, plus, minus)
+    tencode.fold_into_coverage(tc, plus, minus)
     assert tc.serialize() == jc.serialize()
 
 
