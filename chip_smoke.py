@@ -20,8 +20,11 @@ process on the card in parts; auto on the corpus), the scale-out layer
 (h), the GUI's scan, stop, save and explorers headless through
 tests/faketk.py (i), the entry points of graft_entry.py and the two
 device tools (j), the hitdiff sweep against the C reference on the card
-and with the numpy backend (k), and the corpus with a second mate as a
-gzipped, BGZF and plain paired FastQ through the CLI (l).
+and with the numpy backend (k), the corpus with a second mate as a
+gzipped, BGZF and plain paired FastQ through the CLI (l), and the port as
+a user installs it (m): kvarq_tpu_torch/tools/wheel_smoke.py builds the
+wheel from a copy of this checkout, installs it into a fresh venv, builds
+the kernels there with nvcc and scans on the card through ``kvarq-torch``.
 
     python3 chip_smoke.py
 
@@ -84,6 +87,9 @@ AUTO_DEVICE_LOG = 'backend auto: scanning on cuda'
 # no phase may take longer: past it, every thread's traceback is printed
 # and the run exits with 1 (a hung phase must not outlive the run's limit)
 PHASE_SECONDS = 420
+# (m)'s wheel smoke, a process of its own, gets this long (its phase a
+# minute more)
+WHEEL_SECONDS = 600
 
 
 class SmokeFailure(Exception):
@@ -108,11 +114,11 @@ def zero_launches(tps):
     tps.hit_triplets.launches = 0
 
 
-def stamp(stamps, phase):
+def stamp(stamps, phase, seconds=PHASE_SECONDS):
     ''' the start of ``phase``: its time into ``stamps``, the watchdog
-        re-armed '''
+        re-armed for ``seconds`` '''
     stamps.append((phase, time.time()))
-    faulthandler.dump_traceback_later(PHASE_SECONDS, exit=True)
+    faulthandler.dump_traceback_later(seconds, exit=True)
 
 
 def check(ok, msg):
@@ -1546,6 +1552,53 @@ def paired_phase(engine, tps, seqs, windows, path, by_path, card):
                 parsed / dt / 1e6, 100 * rates[variant] / rates['plain']))
 
 
+def wheel_phase(card):
+    '''
+    phase (m): the port as a user installs it.  ``tools/wheel_smoke.py
+    --backend cuda`` builds the wheel from a copy of this checkout,
+    installs it into a fresh venv, and from there (no PYTHONPATH, a scratch
+    directory): a probe with jax, kvarq_tpu and kvarq blocked builds K1 and
+    S1/H1 with nvcc from the installed sources and counts their launches
+    over a sieve-off scan and a ``-H`` scan; the ``kvarq-torch`` console
+    script scans the MTBC fixture (sieve on, off, ``-H``) to the golden
+    calls, the sieve-off json equal to the default's and the hits equal to
+    this checkout's ``--backend cpu -H`` run; csrc/_reader.so unchanged
+    '''
+    from kvarq_tpu_torch.tools import wheel_smoke
+    # a process group of its own: past its time, the venv's processes and
+    # their nvcc go with it
+    try:
+        out = wheel_smoke.end(wheel_smoke.start(
+            [sys.executable, '-m', 'kvarq_tpu_torch.tools.wheel_smoke',
+             '--backend', 'cuda'], cwd=HERE), WHEEL_SECONDS)
+    except wheel_smoke.SmokeFailure as e:
+        raise SmokeFailure('the wheel smoke failed: %s' % e)
+    got = json.loads(out.strip().splitlines()[-1])
+    check(got['ok'] and got['backend'] == 'cuda', 'wheel smoke: %r' % got)
+    n = got['launches']
+    check(n['sieve off']['K1'] > 0 and n['sieve off']['S1'] > 0
+          and n['-H']['K1'] > 0 and n['-H']['H1'] > 0, 'the installed port '
+          'did not launch every kernel: %r' % n)
+    check(all(got['nvcc'].get(k, 0) > 0 for k in KERNEL_SOURCES),
+          'the installed port did not build its kernels: %r' % got['nvcc'])
+    t = got['seconds']
+    say('m', '%s: wheel build %.3fs, install %.3fs; first process (the '
+        'probe: nvcc of both sources in the venv, a sieve-off scan and a -H '
+        'scan) %.3fs; second process, the default scan (a) %.3fs; (b) '
+        'sieve off %.3fs, (c) -H %.3fs; %s' % (
+            got['wheel'], t['wheel build'], t['install'], t['probe'],
+            t['scan (a)'], t['scan (b)'], t['scan (c)'], card))
+    say('m', 'nvcc in the venv, at the same time: %s; libraries under '
+        '<site-packages>/build/kvarq_tpu_torch/; %s' % (', '.join(
+            '%s %.2fs' % (k, got['nvcc'][k]) for k in KERNEL_SOURCES), card))
+    say('m', 'launches from the installed port: sieve off K1 %d, S1 %d; -H '
+        'K1 %d, H1 %d; golden calls; the sieve-off json equals the '
+        'default\'s; the -H hits (%d) equal this checkout\'s; jax, '
+        'kvarq_tpu and kvarq blocked in the probe; csrc/_reader.so '
+        'unchanged' % (n['sieve off']['K1'], n['sieve off']['S1'],
+                       n['-H']['K1'], n['-H']['H1'], got['hits']))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1874,6 +1927,9 @@ def main():
     hitdiff_phase(engine, tps, by_path, card)
     stamp(stamps, 'l')
     paired_phase(engine, tps, seqs, windows, path, by_path, card)
+    # (m) the installed wheel
+    stamp(stamps, 'm', WHEEL_SECONDS + 60)
+    wheel_phase(card)
     stamp(stamps, 'f')
     faulthandler.cancel_dump_traceback_later()
 

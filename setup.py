@@ -85,7 +85,8 @@ setup(
     python_requires='>=3.10',
     install_requires=['numpy', 'jax'],
     entry_points={
-        'console_scripts': ['kvarq = kvarq_tpu.cli:main'],
+        'console_scripts': ['kvarq = kvarq_tpu.cli:main',
+                            'kvarq-torch = kvarq_tpu_torch.cli:main'],
     },
     cmdclass={'build_py': BuildWithNative},
 )

@@ -103,7 +103,7 @@ def _jax_numpy_countseqs(monkeypatch, fastq, seqs):
         numpy hit list (``_basecounts_from_hits``) '''
     monkeypatch.setattr(jengine, 'SMALL_SCAN_BYTES', 1 << 40)
     monkeypatch.setattr(jengine, '_jax_device_ready', lambda: False)
-    jengine.config(backend='auto')
+    jengine.config(backend='auto', nthreads=1)
     return jengine.countseqs(fastq, seqs)
 
 
@@ -112,7 +112,7 @@ def test_numpy_backend_matches_kvarq_tpu(name, monkeypatch):
     ''' findseqs and countseqs with backend numpy equal kvarq_tpu's numpy
         paths, sieve on (as the engines default) '''
     fastq, seqs, params = _case(name)
-    jengine.config(backend='numpy', **params)
+    jengine.config(backend='numpy', nthreads=1, **params)
     want = jengine.findseqs(fastq, seqs)
     tengine.config(backend='numpy', device='cuda', **params)
     got = tengine.findseqs(fastq, seqs)
@@ -156,9 +156,12 @@ def test_cli_numpy_matches_kvarq_tpu(fastq, extra, tmp_path, monkeypatch):
     fastq = os.path.join(HERE, 'fastqs', fastq)
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     out = {}
-    for name, main in (('ref', jcli.main), ('got', cli.main)):
+    # kvarq_tpu reads with one thread: its threaded reader can lose the
+    # wake-up at the end of input
+    for name, main, threads in (('ref', jcli.main, ['-t', '1']),
+                                ('got', cli.main, [])):
         out[name] = str(tmp_path / (name + '.json'))
-        main(['-q', '-t', TESTSUITES, 'scan', '-f', '-l', 'MTBC',
+        main(['-q', '-t', TESTSUITES, 'scan', *threads, '-f', '-l', 'MTBC',
               '--backend', 'numpy', *extra, fastq, out[name]])
     with open(out['ref']) as a, open(out['got']) as b:
         ref, got = json.load(a), json.load(b)
@@ -325,7 +328,7 @@ def test_poller_never_sees_the_previous_scan(monkeypatch, tmp_path):
 
     result = {}
     worker = threading.Thread(target=lambda: result.update(
-        tengine.countseqs(second, list(SEQS7[-2:]))))
+        tengine.countseqs(second, list(SEQS7[-2:]))), daemon=True)
     worker.start()
     try:
         assert entered.wait(10)
@@ -334,9 +337,12 @@ def test_poller_never_sees_the_previous_scan(monkeypatch, tmp_path):
             time.sleep(0.0005)
     finally:
         release.set()
-    while worker.is_alive():
+    # a scan that hangs fails this test, and no other
+    deadline = time.time() + 60
+    while worker.is_alive() and time.time() < deadline:
         poll()
-    worker.join()
+    worker.join(1)
+    assert not worker.is_alive(), 'the second scan did not end in 60 s'
     assert result['stats']['records_parsed'] == 50
     assert not any(seen[:200])
 
@@ -436,7 +442,7 @@ def test_paired_gz_matches_kvarq_tpu():
     ''' the port's device path on the CPU over the paired gz fixtures
         equals kvarq_tpu's numpy hit path and its coverage path '''
     fastq, seqs, params = _case('paired gz')
-    jengine.config(backend='numpy', **params)
+    jengine.config(backend='numpy', nthreads=1, **params)
     want = jengine.findseqs(fastq, seqs)
     jengine.config(backend='xla')
     wantc = jengine.countseqs(fastq, seqs)

@@ -314,13 +314,15 @@ def _save(gui, path):
 
 def _kvarq_tpu_scan(fastq, suite):
     ''' kvarq_tpu's ``Analyser().scan(...).encode()`` of ``fastq`` under
-        the GUI's default settings '''
+        the GUI's default settings, read with one thread (kvarq_tpu's
+        threaded reader can lose the wake-up at the end of input) '''
     from kvarq_tpu import analyse, engine
     from kvarq_tpu.config import config_params, default_config
     from kvarq_tpu.fastq import Fastq
     from kvarq_tpu.testsuites import load_testsuites
     fq = Fastq(fastq)
-    engine.config(**config_params(dict(default_config), fq))
+    engine.config(**dict(config_params(dict(default_config), fq),
+                         nthreads=1))
     suites = load_testsuites(_registry('kvarq_tpu'), [suite])
     analyser = analyse.Analyser()
     analyser.scan(fq, suites)
@@ -428,8 +430,11 @@ def test_stopped_scan_returns_partial_results(when, tmp_path):
         worker = gui.worker
         # records_parsed: the reader raises ``parsed`` (and with it the
         # progress) before it has parsed a whole record
+        deadline = time.time() + 60
         while when != 'before the scan' and not (
                 engine._running and engine.stats()['records_parsed'] > 0):
+            assert time.time() < deadline and worker.is_alive(), \
+                'no parsed records seen while the scan ran'
             faketk.pump(rounds=1)
             time.sleep(0.001)
         gui.start.invoke()                    # "stop"

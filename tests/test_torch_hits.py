@@ -170,11 +170,13 @@ NO_SIEVE = dict(sieve='off')
 
 def _same_as_kvarq_tpu(fname, seqs, **cfg):
     ''' the port's findseqs equals kvarq_tpu's with the numpy and the xla
-        backend, tuple for tuple and in order; returns it '''
+        backend, tuple for tuple and in order; returns it.  kvarq_tpu reads
+        with one thread: its threaded reader can lose the wake-up at the
+        end of input '''
     tengine.config(**cfg)
     got = tengine.findseqs(fname, seqs)
     for backend in ('numpy', 'xla'):
-        jengine.config(backend=backend, **cfg)
+        jengine.config(backend=backend, **dict(cfg, nthreads=1))
         want = jengine.findseqs(fname, seqs)
         assert got['hits'] == want['hits'], backend
         assert got['hitseqs'] == want['hitseqs'], backend
@@ -397,7 +399,7 @@ def test_analyser_keep_hits_matches_numpy(fixture, variant):
     fastq = Fastq(fixture, variant=variant, quiet=True)
     params = dict(maxerrors=2, minoverlap=25, minreadlength=25,
                   Amin=fastq.Q2A(13), Azero=fastq.Azero)
-    jengine.config(backend='numpy', **params)
+    jengine.config(backend='numpy', nthreads=1, **params)
     ref = janalyse.Analyser()
     ref.scan(fastq, suites, keep_hits=True)
     ref.update_testsuites()
@@ -429,7 +431,7 @@ def test_analyser_scan_default_keeps_hits():
     fastq = Fastq(FASTQ2, quiet=True)
     params = dict(maxerrors=2, minoverlap=25, minreadlength=25,
                   Amin=fastq.Q2A(13), Azero=fastq.Azero)
-    jengine.config(backend='numpy', **params)
+    jengine.config(backend='numpy', nthreads=1, **params)
     tengine.config(**params)
     ref, got = janalyse.Analyser(), analyse.Analyser()
     ref.scan(fastq, suites)

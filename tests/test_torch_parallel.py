@@ -86,7 +86,7 @@ def _reference(nch, n_data, n_bank):
     if key not in _REF:
         seqs = _seqs(nch)
         jengine.config(maxerrors=1, minoverlap=5, minreadlength=5, Amin='!',
-                       backend='numpy')
+                       backend='numpy', nthreads=1)
         ret = jengine.findseqs(FNAME, seqs)
         hit = ([np.zeros((encode.NBASE, len(s)), np.int64) for s in seqs],
                np.asarray(ret['stats']['nseqhits']),
@@ -330,7 +330,7 @@ def test_engine_mesh_equals_plain(sieve):
     _need8()
     seqs = _seqs(4)
     params = dict(maxerrors=1, minoverlap=5, minreadlength=5, Amin='!')
-    jengine.config(mesh='4x2', sieve=sieve, **params)
+    jengine.config(mesh='4x2', sieve=sieve, nthreads=1, **params)
     jhits = jengine.findseqs(FNAME, seqs)
     jcounts = jengine.countseqs(FNAME, seqs)
     out = []
@@ -394,7 +394,7 @@ def test_cli_scan_mesh(hits, tmp_path):
     extra = ['-H'] if hits else []
     try:
         ref = _cli_json(jcli.main, tmp_path, 'ref',
-                        ['--mesh', '4x2', *extra])
+                        ['--mesh', '4x2', '-t', '1', *extra])
     finally:
         jengine.config(mesh='')
     keys = ['analyses', 'coverages', 'stats'] + (['hits', 'hitseqs']

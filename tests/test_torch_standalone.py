@@ -135,10 +135,12 @@ def test_runs_with_the_jax_package_blocked(tmp_path):
 
     ref, rhits, rbatch = (str(tmp_path / n) for n in
                           ('ref.json', 'ref.fastq', 'refbatch.json'))
-    jcli.main(['-q', '-t', TESTSUITES, 'scan', '-f', '-l', 'MTBC',
+    # kvarq_tpu reads with one thread: its threaded reader can lose the
+    # wake-up at the end of input
+    jcli.main(['-q', '-t', TESTSUITES, 'scan', '-t', '1', '-f', '-l', 'MTBC',
                '--backend', 'numpy', '-H', '-x', rhits, FASTQ2, ref])
-    jcli.main(['-q', '-t', TESTSUITES, 'batch', '-f', '-l', 'MTBC', FASTQ2,
-               rbatch])
+    jcli.main(['-q', '-t', TESTSUITES, 'batch', '-t', '1', '-f', '-l', 'MTBC',
+               FASTQ2, rbatch])
     got, want = _json(out), _json(ref)
     for key in ('coverages', 'analyses', 'stats', 'hits', 'hitseqs'):
         assert got[key] == want[key], key
@@ -206,7 +208,7 @@ print(json.dumps(results))
 def mtbc_result(tmp_path_factory):
     ''' kvarq_tpu's result json of the 1k-read MTBC fixture '''
     path = str(tmp_path_factory.mktemp('both') / 'ref.json')
-    jcli.main(['-q', '-t', TESTSUITES, 'scan', '-f', '-l', 'MTBC',
+    jcli.main(['-q', '-t', TESTSUITES, 'scan', '-t', '1', '-f', '-l', 'MTBC',
                '--backend', 'numpy', FASTQ2, path])
     return path
 

@@ -194,7 +194,8 @@ def test_adapt_gather_keeps_contexts():
         coverages() after the switch stays exact (mirror of the JAX
         package's test_adapt_gather_rebuilds_in_place) '''
     seqs = ['CACCGGTGTAGGCAAGTCGTAACAAGG', 'CCC']
-    jengine.config(maxerrors=1, minoverlap=5, minreadlength=5, Amin='!')
+    jengine.config(maxerrors=1, minoverlap=5, minreadlength=5, Amin='!',
+                   nthreads=1)
     ref_bcs, _ = _hitpath_basecounts(FASTQ, seqs)
 
     sc = _scan(tts.TensorScanner(seqs, 1, 5, 'cpu'))
@@ -228,7 +229,7 @@ def test_countseqs_matches_jax_and_oracle(maxerrors, minoverlap,
     params = dict(maxerrors=maxerrors, minoverlap=minoverlap,
                   minreadlength=minreadlength, Amin=Amin)
 
-    jengine.config(**params)
+    jengine.config(nthreads=1, **params)
     ref_bcs, ref_stats = _hitpath_basecounts(FASTQ, seqs)
     jengine.config(sieve=sieve, **params)
     jret = jengine.countseqs(FASTQ, seqs)
