@@ -3,11 +3,12 @@
 Smoke run of kvarq_tpu_torch on one NVIDIA GPU: builds the CUDA kernels
 (the candidate screen K1, and the exact scoring S1 with the hit
 extraction H1 in one source, all three on one pipeline: one nvcc per
-source, at the same time) from this checkout, checks each against its
+source, at the same time; no instantiation may have its MMAs serialised
+by ptxas or spill) from this checkout, checks each against its
 plain PyTorch version at the main-path shapes and times it beside its
 bound (K1 with the fp16 and int8 one-hot products alone as context; S1
 dense, gathered and above gather_k, with its phase split; H1 dense and
-gathered as sorted triplet sets),
+gathered as sorted triplet sets, with its phase split),
 drives ``kvarq scan``'s coverage path (``countseqs``)
 and its hit-list path (``findseqs``, ``scan -H/-x``) over the 2M-read
 bench corpus with and without the k-mer sieve and over a hit-dense
@@ -41,6 +42,7 @@ import concurrent.futures
 import faulthandler
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -195,8 +197,10 @@ def h1_phase(tps, codes, rl, state, e, mo, mm_ms, n_cand, card):
     (``hit_triplets_ref``), exactly, as sorted triplet sets
     (``tools/s1_bench.py`` ``measure_hits``): ``dense`` (every read) and
     ``gathered`` (the reads K1 flags, compacted on the card: the hit
-    path's step), timed with CUDA events, median of 5, in turns plain,
-    kernel, kernel, plain, and under the profiler, beside its bound.
+    path's step), the call timed with CUDA events, median of 5, in turns
+    plain, kernel, kernel, plain, and the kernel alone under the profiler,
+    beside its bound, with the phase split of its profile buffer (one
+    more launch, whose triplets are checked too).
 
     :returns: ``{form: measure_hits' entry}``
     '''
@@ -1630,6 +1634,13 @@ def main():
         ' and '.join(KERNEL_SOURCES), time.time() - t0, ', '.join(
             '%s %.2fs' % (k, native_cuda.build_seconds[k])
             for k in KERNEL_SOURCES)))
+    for src in KERNEL_SOURCES:
+        # ptxas serialises the MMAs of an instantiation whose code breaks
+        # the pipeline's rules (kvq_s1_pipeline.h), and says so
+        bad = re.findall(r'\((C751[45]|C7520)\)|\b([1-9]\d*) bytes spill',
+                         native_cuda.ptxas_report.get(src, ''))
+        check(not bad, '%s: ptxas serialised MMAs or spilled: %s'
+              % (src, bad))
 
     suites = bench.load_mtbc()
     windows = bench.template_windows(suites)
@@ -1978,13 +1989,14 @@ def main():
         'launches': H1_BY_PATH['findseqs sieve=off'],
         'launches_by_path': H1_BY_PATH,
         'max_abs_err': h1['gathered']['max_abs_err'],
-        'ms': h1['gathered']['ms'], 'plain_ms': h1['gathered']['plain_ms'],
+        'ms': h1['gathered']['ms'], 'kernel_ms': h1['gathered']['kernel_ms'],
+        'plain_ms': h1['gathered']['plain_ms'],
         'bound_ms': h1['gathered']['bound_ms'],
         'bound_by': h1['gathered']['bound_by'],
         # no single PyTorch call computes the extraction; matmul_ms is the
         # fp16 dense product alone, as context
         'library_ms': None, 'matmul_ms': mm_ms,
-        'forms': h1}]}),
+        'split': h1['gathered']['split'], 'forms': h1}]}),
         flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

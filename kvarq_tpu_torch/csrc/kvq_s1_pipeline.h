@@ -34,19 +34,24 @@
 //   issuing: one issues while the other screens.
 // - The screen takes two columns per DPX instruction (16-bit halves:
 //   the count minus its threshold, whose terms do not depend on e).
-//   S1 and H1 push each passing (read, column) pair into the
-//   warpgroup's list in shared memory (room for every pair of a stage)
-//   only in warps that have one.  Their drain takes a pair per warp: the
-//   match count again from the codes and the staged window, mode_weights,
-//   then S1's seqhits and seqbasehits summed over a warp's run of pairs
-//   of one template before the atomic, and the coverage fold into a u32
-//   histogram of the stage's bank positions in shared memory, flushed
-//   into basecount with one int64 atomic per non-zero entry of the
-//   positions the pairs touched (deep loci take one atomic per position,
-//   not one per read); or H1's triplets.  K1 keeps no list: its drain is
-//   a count per read in registers (Consumer::count).
-//   Depths above the A tile's room (1,024 bytes) rebuild it per chunk
-//   and stage, with nothing in flight.
+//   S1 pushes each passing (read, column) pair into the warpgroup's list
+//   in shared memory (room for every pair of a stage) only in warps that
+//   have one.  Its drain takes a pair per warp: the match count again
+//   from the codes and the staged window (the coverage fold walks the
+//   read's positions anyway), mode_weights, seqhits and seqbasehits
+//   summed over a warp's run of pairs of one template before the atomic,
+//   and the coverage fold into a u32 histogram of the stage's bank
+//   positions in shared memory, flushed into basecount with one int64
+//   atomic per non-zero entry of the positions the pairs touched (deep
+//   loci take one atomic per position, not one per read).  H1 and K1
+//   keep no list and recount nothing: their drains work in the screen's
+//   lanes, on the accumulators, which hold each pair's whole count.  K1's
+//   (Consumer::count) keeps a count per read in registers; H1's
+//   (Consumer::hits) keeps each pair's pass bit, which is mode_weights'
+//   test of the count, and writes the triplets of the passing pairs with
+//   hit modes into slots claimed with one atomic per warp.  Depths above
+//   the A tile's room (1,024 bytes) rebuild it per chunk and stage, with
+//   nothing in flight: the accumulators are whole after the last chunk.
 //
 // ptxas serialises the MMAs (C7514/C7515/C7520 in the -Xptxas -v report)
 // if any of these breaks: warp-uniform control flow around the MMAs, no
@@ -91,8 +96,8 @@ enum Drain { DRAIN_SCORE, DRAIN_HIT, DRAIN_COUNT };
 
 // the dynamic shared memory of one launch: the A tile (akc K columns of
 // 16 bytes), NSLOT slots (R windows of win bytes, the terms), NCW pair
-// lists (S1, H1) and NCW coverage histograms of 5 x hp positions (S1; hp
-// 0: none)
+// lists (S1) and NCW coverage histograms of 5 x hp positions (S1; hp 0:
+// none)
 struct Layout {
     int dp;         // depth bytes the MMAs read (whole k32 steps)
     int win;        // bytes of one residue window of a group
@@ -105,7 +110,7 @@ struct Layout {
 Layout make_layout(int SP, int Lpad, int mode)
 {
     const bool hist_ok = mode == DRAIN_SCORE;
-    const int list_bytes = mode == DRAIN_COUNT ? 0 : NCW * LIST_CAP * 2;
+    const int list_bytes = mode == DRAIN_SCORE ? NCW * LIST_CAP * 2 : 0;
     Layout L = {};
     const int R = 16 / SP;
     L.dp = (SP * Lpad + 31) / 32 * 32;
@@ -225,11 +230,11 @@ __device__ __forceinline__ void wgmma_n128(int (&d)[64], uint64_t da,
         : "l"(da), "l"(db), "r"(acc));
 }
 
-// hit-mode weight (0/1/2) and overlap ov of a read of length rl with m
-// matching bases at a column (d, seql, valid): tensor_scan.mode_weights
-__device__ __forceinline__ int mode_weight(int m, int rl, int d, int seql,
-                                           int valid, int maxerrors,
-                                           int minoverlap, int& ov)
+// the hit modes (A, B, full: 0, 1 or 2 of them) and the overlap ov of a
+// read of length rl at a column (d, seql): tensor_scan.mode_weights
+// without its pass test
+__device__ __forceinline__ int mode_bits(int rl, int d, int seql,
+                                         int minoverlap, int& ov)
 {
     const int t1 = d + rl;
     ov = min(seql, t1) - max(d, 0);
@@ -238,8 +243,18 @@ __device__ __forceinline__ int mode_weight(int m, int rl, int d, int seql,
     const int wA = ab && d < 0 && govmo && ov != seql;
     const int wB = ab && d > 0 && govmo && t1 >= seql;
     const int full = ov == min(rl, seql);
+    return wA + wB + full;
+}
+
+// hit-mode weight (0/1/2) and overlap ov of a read of length rl with m
+// matching bases at a column (d, seql, valid): tensor_scan.mode_weights
+__device__ __forceinline__ int mode_weight(int m, int rl, int d, int seql,
+                                           int valid, int maxerrors,
+                                           int minoverlap, int& ov)
+{
+    const int w = mode_bits(rl, d, seql, minoverlap, ov);
     const bool passing = valid > 0 && rl > 0 && ov - m <= maxerrors;
-    return passing ? wA + wB + full : 0;
+    return passing ? w : 0;
 }
 
 struct Args {
@@ -413,12 +428,13 @@ struct Consumer {
     {
         if constexpr (MODE == DRAIN_COUNT)
             count(acc, st);
+        else if constexpr (MODE == DRAIN_HIT)
+            hits(acc, st);
         else
             finish_pairs(acc, st);
     }
 
-    // S1's and H1's finish: the screen's passing pairs listed, then
-    // drained
+    // S1's finish: the screen's passing pairs listed, then drained
     __device__ __forceinline__ void finish_pairs(const int (&acc)[NACC],
                                                  const Stage& st)
     {
@@ -531,7 +547,7 @@ struct Consumer {
             pt[PROF_DRAIN] += clk() - c0;
     }
 
-    // the listed pairs, one warp per pair; MMA column c is column qs + R c
+    // S1's listed pairs, one warp per pair; MMA column c is column qs + R c
     // and bank position qs + R c + j is one-hot at byte SP (R c + j) of the
     // staged window win; its coverage lands on histogram entry g - hbase
     __device__ __forceinline__ void drain(int nl, const uint8_t* win, int qs,
@@ -570,18 +586,6 @@ struct Consumer {
                                       a.maxerrors, a.minoverlap, ov);
             if (w == 0)
                 continue;
-            if constexpr (MODE == DRAIN_HIT) {
-                if (lane == 0) {
-                    const int k = atomicAdd(a.nout, 1);
-                    if (k < a.outcap) {
-                        int32_t* o = a.out + 3 * (size_t)k;
-                        o[0] = a.row_ids ? a.row_ids[row] : row;
-                        o[1] = seg;
-                        o[2] = d;
-                    }
-                }
-                continue;
-            }
             if (lane == 0) {
                 if (seg != run_seg) {
                     if (run_seg >= 0) {
@@ -613,27 +617,129 @@ struct Consumer {
                 }
             }
         }
-        if (MODE == DRAIN_SCORE && lane == 0 && run_seg >= 0) {
+        if (lane == 0 && run_seg >= 0) {
             atomicAdd(a.seqhits + run_seg, run_w);
             atomicAdd(a.seqbasehits + run_seg, run_b);
         }
     }
 
-    // K1's drain of stage st, its accumulators in acc: the stage's passing
-    // columns of each of this thread's two reads added to cnt (the screen
-    // of finish with k = e + 1 moved into its terms, so that a pair passes
-    // where its count plus them is at least 1: clamped to 0 or 1, that is
-    // its pass bit, two columns a DPX instruction), the counts flushed
-    // first when the row tile changes, and the release of the slot after
-    // its group's last stage
-    __device__ __forceinline__ void count(const int (&acc)[NACC],
-                                          const Stage& st)
+    // H1's drain of stage st, its accumulators in acc: K1's screen
+    // (pass_bits), each pair's pass bit kept in pm instead of summed.  The
+    // screen is mode_weights' own test of the count: its threshold's first
+    // term, min(rl + dm, ovc), is the overlap ov, so a pair passes only
+    // where ov - m <= e (kvq_hit_extract checks that the clamped terms
+    // compare as the true ones).  So, in the warps with a passing pair,
+    // each set bit's weight is its hit modes where the column is valid and
+    // the read not empty: the read's length from the row terms, and the
+    // column's d, seql and valid, loaded in that lane alone (a read passes
+    // a template or two: loads in the passing lanes cost less than staging
+    // three more words for every column of every group).  The pairs with w
+    // > 0 are written by claim; the slot is released after its group's
+    // last stage.  No list, no recount, no warp per pair, and no
+    // accumulator read outside the screen.
+    __device__ __forceinline__ void hits(const int (&acc)[NACC],
+                                         const Stage& st)
     {
-        const long long c0 = clk();
-        if (st.rt != cnt_rt) {
-            flush_counts();
-            cnt_rt = st.rt;
+        long long c0 = clk();
+        const int set = st.rt & 1;
+        // the pair of acc[4 j + 2 h + e] at bit 16 e + 2 (j % 8) + h of
+        // word j / 8 (pair_of)
+        uint32_t pm[2] = {0u, 0u};
+        pass_bits(acc, st, [&](int j, int h, uint32_t p) {
+            pm[j / 8] |= p << (2 * (j % 8) + h);
+        });
+        if (PROF) {
+            const long long c1 = clk();
+            pt[PROF_SCREEN] += c1 - c0;
+            c0 = c1;
         }
+        if (__any_sync(0xFFFFFFFFu, (pm[0] | pm[1]) != 0u)) {
+            const int* qm = a.qmeta;
+            const int Qp = a.Qp;
+            const int qs = st.g * GC + st.k / R * SPAN + st.k % R;
+            u64 hit = 0;     // the bits of pm whose pairs have w > 0
+            for (u64 b = pm[0] | (u64)pm[1] << 32; b; b &= b - 1) {
+                const int p = __ffsll((long long)b) - 1;
+                int c, h;
+                pair_of(p, c, h);
+                const int q = qs + R * c;
+                const int rl = sh.row_rl[set][acc_read(warp, g8, h)];
+                int ov;
+                if (rl > 0 && qm[ROW_VALID * Qp + q] > 0
+                        && mode_bits(rl, qm[ROW_D * Qp + q],
+                                     qm[ROW_SEQL * Qp + q], a.minoverlap,
+                                     ov) > 0)
+                    hit |= 1ull << p;
+            }
+            claim(hit, qs, set);
+        }
+        if (PROF) {
+            const long long c1 = clk();
+            pt[PROF_DRAIN] += c1 - c0;
+            c0 = c1;
+        }
+        if (st.release) {
+            wg_sync(wg);     // the terms are read
+            if (wtid == 0)
+                mbar_arrive(&sh.empty[st.slot]);
+        }
+        if (PROF)
+            pt[PROF_WAIT] += clk() - c0;
+    }
+
+    // the pair of bit p of H1's pass bits (hits): MMA column c (acc[4 (c /
+    // 8) + 2 h + c % 2]) of read acc_read(warp, g8, h)
+    __device__ __forceinline__ void pair_of(int p, int& c, int& h) const
+    {
+        c = 8 * (8 * (p >> 5) + (p >> 1 & 7)) + 2 * t + (p >> 4 & 1);
+        h = p & 1;
+    }
+
+    // H1: the triplets (row id, template, d) of this thread's pairs with
+    // w > 0 (the set bits of hit, pair_of's pairs, at shift column qs +
+    // R c, of row terms set) in slots of the buffer claimed with one
+    // atomicAdd on the counter per warp (each lane's first slot: the
+    // warp's base plus its count of triplets in the lanes before it); a
+    // slot at or past outcap is counted, not written
+    __device__ __forceinline__ void claim(u64 hit, int qs, int set)
+    {
+        const int nh = __popcll(hit);
+        int pre = nh;    // the warp's inclusive prefix sum
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const int v = __shfl_up_sync(0xFFFFFFFFu, pre, o);
+            if (lane >= o)
+                pre += v;
+        }
+        const int total = __shfl_sync(0xFFFFFFFFu, pre, 31);
+        if (total == 0)
+            return;
+        int base = 0;
+        if (lane == 31)
+            base = atomicAdd(a.nout, total);
+        int slot = __shfl_sync(0xFFFFFFFFu, base, 31) + pre - nh;
+        for (; hit && slot < a.outcap; hit &= hit - 1, ++slot) {
+            int c, h;
+            pair_of(__ffsll((long long)hit) - 1, c, h);
+            const int q = qs + R * c;
+            const int row = sh.row_id[set][acc_read(warp, g8, h)];
+            int32_t* o = a.out + 3 * (size_t)slot;
+            o[0] = a.row_ids ? a.row_ids[row] : row;
+            o[1] = a.tseg[q];
+            o[2] = a.qmeta[ROW_D * a.Qp + q];
+        }
+    }
+
+    // the screen of stage st, its accumulators in acc, as K1 and H1 take
+    // it: the screen of finish_pairs with k = e + 1 moved into its terms,
+    // so that a pair passes where its count plus them is at least 1:
+    // clamped to 0 or 1, that is its pass bit, two columns a DPX
+    // instruction.  bits(j, h, p) takes the pass bits p of acc[4 j + 2 h]
+    // (low half) and acc[4 j + 2 h + 1] (high half).
+    template <class Bits>
+    __device__ __forceinline__ void pass_bits(const int (&acc)[NACC],
+                                              const Stage& st, Bits&& bits)
+    {
         const uint4* terms = reinterpret_cast<const uint4*>(
             slots + st.slot * lay.slot_bytes + R * lay.win) + st.k * 64;
         const int set = st.rt & 1;
@@ -648,7 +754,6 @@ struct Consumer {
             nrl2[h] = (uint32_t)((k - rl) & 0xFFFF) * 0x10001u;
             nrlmo2[h] = (uint32_t)((k - rlmo) & 0xFFFF) * 0x10001u;
         }
-        uint32_t pass[2] = {0u, 0u};    // pass bits summed in both halves
 #pragma unroll
         for (int j = 0; j < NACC / 4; ++j) {
             const uint4 tm = terms[4 * j + t];
@@ -663,9 +768,25 @@ struct Consumer {
                 const uint32_t nthr = __viaddmin_s16x2(
                     __viaddmax_s16x2(nrl2[h], tm.x, ovc), 0u,
                     __viaddmax_s16x2(nrlmo2[h], 0u, sq));
-                pass[h] += __viaddmin_s16x2_relu(a2, nthr, 0x00010001u);
+                bits(j, h, __viaddmin_s16x2_relu(a2, nthr, 0x00010001u));
             }
         }
+    }
+
+    // K1's drain of stage st, its accumulators in acc: the stage's pass
+    // bits (pass_bits) of each of this thread's two reads added to cnt,
+    // the counts flushed first when the row tile changes, and the release
+    // of the slot after its group's last stage
+    __device__ __forceinline__ void count(const int (&acc)[NACC],
+                                          const Stage& st)
+    {
+        const long long c0 = clk();
+        if (st.rt != cnt_rt) {
+            flush_counts();
+            cnt_rt = st.rt;
+        }
+        uint32_t pass[2] = {0u, 0u};    // pass bits summed in both halves
+        pass_bits(acc, st, [&](int, int h, uint32_t p) { pass[h] += p; });
 #pragma unroll
         for (int h = 0; h < 2; ++h)
             cnt[h] += (int)(pass[h] & 0xFFFFu) + (int)(pass[h] >> 16);
@@ -945,7 +1066,7 @@ int launch(Kernel kernel, int which, const Args& a, int SP, int cap,
         return (int)cudaErrorInvalidValue;
     // per device: its SM count, and the dynamic shared memory each
     // instantiation may use (above the 48 KB default), set once
-    constexpr int MAXDEV = 64, NKERNEL = 6;
+    constexpr int MAXDEV = 64, NKERNEL = 8;
     static int sms_of[MAXDEV], smem_of[MAXDEV][NKERNEL];
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);

@@ -38,14 +38,22 @@
 // drain chosen at compile time.  It is the device work of kvarq_tpu's hit
 // matcher, match_xla._jit_step (kvarq_tpu/engine/match_xla.py:122-188:
 // the GEMM, mode_weights, the packed windows) and _jit_rows, which XLA
-// runs there.  For every listed pair the drain recomputes the count as
-// S1's does, applies mode_weights and, where w > 0, takes a slot of the
-// triplet buffer with an atomicAdd on a device counter and writes
-// (row_ids[row], tseg[q], qmeta[ROW_D, q]) there while the slot is below
-// its capacity; the counter always ends at the number of triplets.  No
-// histogram, no seqhits, no coverage: the shared memory of the histograms
-// is not laid out.  Nothing of size [B, Qp] is written here either: the
-// buffer holds the triplets alone.
+// runs there.  Its drain (Consumer::hits) works in the screen's lanes, as
+// K1's does: K1's screen over the accumulators (the one-hot product of the
+// same operands over the whole depth: each pair's whole count) keeps each
+// pair's pass bit, and a pass is mode_weights' own test of that count (the
+// screen's threshold holds the overlap ov, so a passing pair has ov - m <=
+// e), so the lane of a passing pair takes its hit modes from the read's
+// length and the column's d, seql and valid; the pairs with w > 0 take
+// slots of the triplet buffer, one atomicAdd on a device counter per warp
+// (each lane's count of them and a prefix sum over the lanes), and each
+// writes (row_ids[row], tseg[q], qmeta[ROW_D, q]) there while its slot is
+// below the capacity; the counter always ends at the number of triplets.
+// No pair list, no recount, no histogram, no seqhits, no coverage: the
+// shared memory of the lists and histograms is not laid out.  Nothing of
+// size [B, Qp] is written here either: the buffer holds the triplets
+// alone.  What bounds it is S1's product of the rows it extracts; its
+// drain adds a few loads and stores per triplet.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (kvarq_tpu_torch/engine/native_cuda.py).
@@ -70,14 +78,14 @@ score_step_kernel(const __grid_constant__ Args a,
 }
 
 // H1
-template <int SP>
+template <int SP, bool PROF>
 __global__ void __launch_bounds__(NTHREADS, 1)
 hit_extract_kernel(const __grid_constant__ Args a,
                    const __grid_constant__ Layout lay)
 {
     extern __shared__ __align__(128) uint8_t smem[];
     __shared__ Shared sh;
-    block_run<SP, false, DRAIN_HIT>(a, lay, smem, sh);
+    block_run<SP, PROF, DRAIN_HIT>(a, lay, smem, sh);
 }
 
 }  // namespace
@@ -131,28 +139,41 @@ int kvq_score_step(const void* codes, const void* rl, const void* rows,
 // out: int32 [outcap, 3], the triplets (row id, template, shift d) in no
 // particular order; nout: int32 [1], zero on entry, the number of
 // triplets on exit (also where it exceeds outcap: only the first outcap
-// slots are written).  Returns the CUDA error code of the launch.
+// slots are written); prof as kvq_score_step's.  Returns the CUDA error
+// code of the launch.
 int kvq_hit_extract(const void* codes, const void* rl, const void* rows,
                     const void* count, int cap, const void* bank, int nbw,
                     const void* onehot, long onb, const void* sterms,
                     const void* qmeta, const void* tseg, const void* row_ids,
                     void* out, void* nout, int outcap, int Lpad, int Qp,
-                    int nch, int maxerrors, int minoverlap, void* stream)
+                    int nch, int maxerrors, int minoverlap, void* prof,
+                    void* stream)
 {
     if (cap <= 0 || Qp <= 0)
         return 0;
     if (Lpad <= 0 || Lpad % 4 || (nch != 4 && nch != 5) || outcap < 0)
         return (int)cudaErrorInvalidValue;
+    // the drain takes a pass of the screen as mode_weights' test of the
+    // count, which holds while twice Lpad plus e stays below the screen
+    // terms' clamp (pallas_scan.S1_TERM_CLAMP, 16383): there the clamped
+    // terms compare with a count plus e as the true ones.  No layout
+    // holds such depths anyway.
+    if (maxerrors < 0 || 2 * Lpad + maxerrors >= 16383)
+        return (int)cudaErrorInvalidValue;
     const int SP = nch == 4 ? 4 : 8;
+    const int which = 4 + (SP == 4 ? 0 : 2) + (prof ? 1 : 0);
+    const Kernel kernel = SP == 4
+        ? (prof ? hit_extract_kernel<4, true> : hit_extract_kernel<4, false>)
+        : (prof ? hit_extract_kernel<8, true> : hit_extract_kernel<8, false>);
     const Args a = {(const uint32_t*)codes, (const int32_t*)rl,
                     (const int32_t*)rows, (const int32_t*)count, cap,
                     (const uint8_t*)bank, 4L * nbw, (const uint8_t*)onehot,
                     onb, (const uint4*)sterms, (const int32_t*)qmeta,
                     (const int32_t*)tseg, nullptr, nullptr, nullptr, Lpad,
-                    Qp, 0, maxerrors, minoverlap, nullptr, (int32_t*)out,
-                    (int32_t*)nout, outcap, (const int32_t*)row_ids};
-    return launch(SP == 4 ? hit_extract_kernel<4> : hit_extract_kernel<8>,
-                  4 + (SP == 4 ? 0 : 1), a, SP, cap, DRAIN_HIT, stream);
+                    Qp, 0, maxerrors, minoverlap, (long long*)prof,
+                    (int32_t*)out, (int32_t*)nout, outcap,
+                    (const int32_t*)row_ids};
+    return launch(kernel, which, a, SP, cap, DRAIN_HIT, stream);
 }
 
 }  // extern "C"

@@ -503,6 +503,18 @@ def _check_args(what, codes, rl, state, idx=None, count=None):
                     tuple(t.shape), t.device))
 
 
+def _check_profile(what, profile, device):
+    ''' a kernel's profile buffer: None, or a contiguous int64 tensor of
+        :py:data:`PROFILE_PHASES` entries on ``device``; raises ValueError '''
+    if profile is not None and (
+            profile.device != device or profile.dtype != torch.int64
+            or tuple(profile.shape) != (len(PROFILE_PHASES),)
+            or not profile.is_contiguous()):
+        raise ValueError('%s: profile must be a contiguous int64 tensor of '
+                         'shape (%d,) on %s'
+                         % (what, len(PROFILE_PHASES), device))
+
+
 def score_candidates(codes, rl, state, maxerrors, minoverlap, idx=None,
                      count=None, rows=None, profile=None):
     '''
@@ -537,13 +549,7 @@ def score_candidates(codes, rl, state, maxerrors, minoverlap, idx=None,
     if Lpad % 4 or codes.data_ptr() % 4 or state.bank.numel() % 4:
         raise ValueError('score_candidates: Lpad, the codes pointer and the '
                          'bank length must be multiples of 4')
-    if profile is not None and (
-            profile.device != codes.device or profile.dtype != torch.int64
-            or tuple(profile.shape) != (len(PROFILE_PHASES),)
-            or not profile.is_contiguous()):
-        raise ValueError('score_candidates: profile must be a contiguous '
-                         'int64 tensor of shape (%d,) on %s'
-                         % (len(PROFILE_PHASES), codes.device))
+    _check_profile('score_candidates', profile, codes.device)
     G, T = state.G, state.T
     # one buffer, one memset
     out = torch.zeros(encode.NBASE * G + 2 * (T + 1), dtype=torch.int64,
@@ -574,8 +580,9 @@ def score_candidates(codes, rl, state, maxerrors, minoverlap, idx=None,
 
 score_candidates.launches = 0
 
-# the entries of score_candidates' profile buffer (PROF_* of
-# csrc/kvq_s1_pipeline.h), clock64() cycles summed over warpgroups
+# the entries of the profile buffer of score_candidates and hit_triplets
+# (PROF_* of csrc/kvq_s1_pipeline.h), clock64() cycles summed over
+# warpgroups
 PROFILE_PHASES = ('build', 'mma', 'screen', 'drain', 'wait', 'total',
                   'stage', 'stage_wait')
 
@@ -671,13 +678,13 @@ def _hit_lib():
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, i, vp, i, vp, ctypes.c_long, vp, vp,
-                       vp, vp, vp, vp, i, i, i, i, i, i, vp]
+                       vp, vp, vp, vp, i, i, i, i, i, i, vp, vp]
         fn.restype = ctypes.c_int
     return fn
 
 
 def hit_triplets(codes, rl, state, maxerrors, minoverlap, idx=None,
-                 count=None, row_ids=None, cap=HIT_CAP):
+                 count=None, row_ids=None, cap=HIT_CAP, profile=None):
     '''
     exact hit extraction of rows of one batch: every ``(row, template,
     shift)`` of a row and a shift column ``q`` with a hit-mode weight
@@ -692,6 +699,9 @@ def hit_triplets(codes, rl, state, maxerrors, minoverlap, idx=None,
     :param row_ids: int32 ``[B]`` on the device of ``codes``: the id a
         triplet reports for batch row ``b`` (None: ``b``)
     :param cap: the triplet buffer's capacity
+    :param profile: int64 ``[8]`` tensor on the card, or None: the
+        kernel adds each warpgroup's clock cycles per phase to it
+        (:py:data:`PROFILE_PHASES`)
     :returns: ``(buffer, n)`` -- int32 ``[cap, 3]`` whose first ``min(n,
         cap)`` rows are triplets, and ``n``, the number of triplets (it
         may exceed ``cap``), a 0-d int32 tensor on the device of
@@ -715,6 +725,7 @@ def hit_triplets(codes, rl, state, maxerrors, minoverlap, idx=None,
     if Lpad % 4 or codes.data_ptr() % 4 or state.bank.numel() % 4:
         raise ValueError('hit_triplets: Lpad, the codes pointer and the bank '
                          'length must be multiples of 4')
+    _check_profile('hit_triplets', profile, codes.device)
     buf, n = _hit_buffer(cap, codes.device)
     rank = B if idx is None else len(idx)
     if rank == 0:
@@ -731,6 +742,7 @@ def hit_triplets(codes, rl, state, maxerrors, minoverlap, idx=None,
             None if row_ids is None else row_ids.data_ptr(),
             buf.data_ptr(), n.data_ptr(), cap, Lpad, state.Qp, state.nch,
             maxerrors, minoverlap,
+            None if profile is None else profile.data_ptr(),
             torch.cuda.current_stream(codes.device).cuda_stream)
     if err:
         raise RuntimeError('hit_extract kernel launch failed: CUDA error %d'

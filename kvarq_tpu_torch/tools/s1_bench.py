@@ -28,8 +28,8 @@ The split is one more launch with the kernel's profile buffer: each
 warpgroup's ``clock64()`` cycles per phase (``PROFILE_PHASES``), as
 shares of the consumer warpgroups' total.  H1 takes the forms ``dense``
 and ``gathered`` of the same batch, compared as sorted triplet sets and
-timed the same way (it has no profile buffer); its bound adds the
-triplets written to the product's.  K1 is timed the same way on the
+timed and split the same way (the profiled launch's triplets checked
+too); its bound adds the triplets written to the product's.  K1 is timed the same way on the
 same batch (``--k1``; its bound counts the staged one-hot bank and the
 screen terms it reads and the counts it writes).  The ``--k1`` mode uses
 only the port's public functions, so an older checkout's K1 is timed by
@@ -262,13 +262,13 @@ def forms(tps, codes, rl, state, e, mo, deep=False):
             ('above_gather_k', (idx, count), n)]
 
 
-def split(tps, codes, rl, state, e, mo, args):
-    ''' one launch with the profile buffer: ``{phase: share of the consumer
-        warpgroups' cycles}`` plus ``cycles`` (their total) and the
-        producer's ``stage`` and ``stage_wait`` cycles '''
+def split(tps, launch, device):
+    ''' one launch with the profile buffer, ``launch(prof)``: ``{phase:
+        share of the consumer warpgroups' cycles}`` plus ``cycles`` (their
+        total) and the producer's ``stage`` and ``stage_wait`` cycles '''
     prof = torch.zeros(len(tps.PROFILE_PHASES), dtype=torch.int64,
-                       device=codes.device)
-    tps.score_candidates(codes, rl, state, e, mo, *args, profile=prof)
+                       device=device)
+    launch(prof)
     torch.cuda.synchronize()
     cyc = dict(zip(tps.PROFILE_PHASES, prof.tolist()))
     total = max(1, cyc['total'])
@@ -309,7 +309,10 @@ def measure(tps, codes, rl, state, e, mo, deep=False, reps=5):
                          bound_ms=b['bound_ms'], bound_by=b['bound_by'],
                          ops=b['ops'], bytes=b['bytes'], max_abs_err=err,
                          hit_weight=weight,
-                         split=split(tps, codes, rl, state, e, mo, args))
+                         split=split(tps, lambda p, args=args:
+                                     tps.score_candidates(
+                                         codes, rl, state, e, mo, *args,
+                                         profile=p), codes.device))
     return out
 
 
@@ -336,9 +339,10 @@ def measure_hits(tps, codes, rl, state, e, mo, reps=5):
         read there): exactness against ``hit_triplets_ref`` as sorted
         triplet sets (raises AssertionError), times (CUDA events, median of
         ``reps``, plain, kernel, kernel, plain; the kernel alone under the
-        profiler) and bound.
+        profiler), bound and the split of one launch with the profile
+        buffer, whose triplets must be the same set.
         :returns: ``{form: {rows, triplets, ms, kernel_ms, plain_ms,
-        ms_runs, bound_ms, bound_by, ops, bytes, max_abs_err}}`` '''
+        ms_runs, bound_ms, bound_by, ops, bytes, max_abs_err, split}}`` '''
     Lpad = codes.shape[1]
     out = {}
     for form, args, rows in forms(tps, codes, rl, state, e, mo)[:2]:
@@ -359,42 +363,59 @@ def measure_hits(tps, codes, rl, state, e, mo, reps=5):
             tps.hit_triplets_ref(codes, rl, state, e, mo, *args, cap=cap)
         times = [cuda_time_ms(f, reps) for f in (plain, kernel, kernel, plain)]
         b = hit_bound(rows, Lpad, state, bool(args), n)
+        profiled = []
+
+        def launch(prof, args=args):
+            profiled.append(tps.hit_triplets(codes, rl, state, e, mo, *args,
+                                             cap=cap, profile=prof))
+        sp = split(tps, launch, codes.device)
+        pgot, pn = tps.triplets_to_host(*profiled[0])
+        assert pn == n and np.array_equal(_tri_sorted(pgot),
+                                          _tri_sorted(want)), (
+            'H1 with its profile buffer differs, %s' % form)
         out[form] = dict(rows=rows, triplets=n, ms=min(times[1:3]),
                          kernel_ms=kernel_ms(kernel, 'hit_extract_kernel'),
                          plain_ms=min(times[0], times[3]), ms_runs=times,
                          bound_ms=b['bound_ms'], bound_by=b['bound_by'],
-                         ops=b['ops'], bytes=b['bytes'], max_abs_err=0)
+                         ops=b['ops'], bytes=b['bytes'], max_abs_err=0,
+                         split=sp)
     return out
+
+
+def _split_text(s):
+    ''' a :py:func:`split` as text '''
+    return ('split of %d warpgroup cycles: build %.1f%%, mma %.1f%%, screen '
+            '%.1f%%, drain %.1f%%, waits %.1f%%; producer staging %d, '
+            'waiting %d cycles' % (
+                s['cycles'], 100 * s['build'], 100 * s['mma'],
+                100 * s['screen'], 100 * s['drain'], 100 * s['wait'],
+                s['stage'], s['stage_wait']))
 
 
 def describe_hits(form, r):
     ''' one line of :py:func:`measure_hits`'s result for ``form`` '''
-    return ('H1 %s: %d rows, %d triplets, exact; kernel %.4f / %.4f ms, '
+    return ('H1 %s: %d rows, %d triplets, exact; the call %.4f / %.4f ms, '
             'plain %.3f / %.3f ms (CUDA events, plain, kernel, kernel, '
             'plain); the kernel alone %.4f ms (profiler); bound %.4f ms (%s), '
-            'the kernel at %.1f%% of it' % (
+            'the kernel at %.1f%% of it; %s' % (
                 form, r['rows'], r['triplets'], r['ms_runs'][1],
                 r['ms_runs'][2], r['ms_runs'][0], r['ms_runs'][3],
                 r['kernel_ms'] or float('nan'), r['bound_ms'], r['bound_by'],
-                100 * r['bound_ms'] / (r['kernel_ms'] or r['ms'])))
+                100 * r['bound_ms'] / (r['kernel_ms'] or r['ms']),
+                _split_text(r['split'])))
 
 
 def describe(form, r):
     ''' one line of :py:func:`measure`'s result for ``form`` '''
-    s = r['split']
     return ('%s: %d rows, %d hit weight, exact; kernel %.4f / %.4f ms, plain '
             '%.3f / %.3f ms (CUDA events, plain, kernel, kernel, plain); the '
             'kernel alone %.4f ms (profiler); bound %.4f ms (%s), the kernel '
-            'at %.1f%% of it; split of %d warpgroup cycles: '
-            'build %.1f%%, mma %.1f%%, screen %.1f%%, drain %.1f%%, waits '
-            '%.1f%%; producer staging %d, waiting %d cycles' % (
+            'at %.1f%% of it; %s' % (
                 form, r['rows'], r['hit_weight'], r['ms_runs'][1],
                 r['ms_runs'][2], r['ms_runs'][0], r['ms_runs'][3],
                 r['kernel_ms'] or float('nan'), r['bound_ms'], r['bound_by'],
                 100 * r['bound_ms'] / (r['kernel_ms'] or r['ms']),
-                s['cycles'], 100 * s['build'], 100 * s['mma'],
-                100 * s['screen'], 100 * s['drain'], 100 * s['wait'],
-                s['stage'], s['stage_wait']))
+                _split_text(r['split'])))
 
 
 def main(argv=None):

@@ -22,3 +22,26 @@ def case(seed, nch, B=16, Lpad=64, nseq=7, minoverlap=25):
     bank = build_bank(seqs, Lpad, minoverlap)
     assert bank_channels(bank.codes) == nch
     return seqs, codes, rl, bank
+
+
+def periodic_case(nch, B, Lpad, minoverlap=25):
+    ''' a deep locus that fills whole warps of the pipeline's stages
+        (csrc/kvq_s1_pipeline.h): ``B`` copies of one read of ACGT repeated
+        against a template that repeats it too, so that the read matches
+        whole at every fourth shift, which is one shift column residue's
+        MMA columns side by side: in such a stage every read and every
+        lane of a warp has passing pairs.  With ``nch`` 5 a second template
+        holds an N. '''
+    seqs = ['ACGT' * 60]
+    if nch == 5:
+        seqs.append('ACGTTGCANACGGTTACCGTA')
+    readlen = min(Lpad - 4, 100)
+    raw = np.full((B, Lpad), ord('A'), dtype=np.uint8)
+    raw[:, :readlen] = np.frombuffer(('ACGT' * Lpad).encode()[:readlen],
+                                     np.uint8)
+    codes = encode.encode_read_array(raw)
+    codes[:, readlen:] = encode.CODE_READ_JUNK
+    rl = np.full(B, readlen, dtype=np.int32)
+    bank = build_bank(seqs, Lpad, minoverlap)
+    assert bank_channels(bank.codes) == nch
+    return seqs, codes, rl, bank

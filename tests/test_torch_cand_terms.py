@@ -28,9 +28,11 @@ TB, TQ = 8, 128
 INT16_MAX = 32767
 
 
-def k1_counts(codes, rl, state, maxerrors, minoverlap):
-    ''' K1's per-read counts as the kernel computes them, in plain torch;
-        asserts that every intermediate of its 16-bit halves fits them '''
+def staged_counts(codes, state):
+    ''' ``(m [B, columns], q [columns])``: the match counts of the
+        pipeline's staged operands (csrc/kvq_s1_pipeline.h), the columns in
+        ``s1_columns`` order, the last group's padding columns included,
+        and the shift column of each '''
     nch, Lpad, Qp = state.nch, state.Lpad, state.Qp
     SP, DP = tps.s1_depth(Lpad, nch)
     R = 16 // SP
@@ -47,13 +49,33 @@ def k1_counts(codes, rl, state, maxerrors, minoverlap):
     s = q % R
     rows = state.onehot.long()[s[:, None], SP * (q - s)[:, None]
                                + torch.arange(DP)]
-    m = A @ rows.T                                         # [B, columns]
-    # the terms' halves (minus dm, ovc, seql), MMA columns 2 i and 2 i + 1
+    return A @ rows.T, q
+
+
+def column_halves(state):
+    ''' ``[columns, 3]`` int64: the screen terms' 16-bit halves (minus dm,
+        ovc, seql, clamped) of each column in ``s1_columns`` order '''
     halves = state.sterms.numpy()[:, :3].view(np.uint32)
-    col = np.empty((len(q), 3), dtype=np.int64)
+    col = np.empty((2 * len(halves), 3), dtype=np.int64)
     col[0::2] = (halves & 0xFFFF).astype(np.uint16).view(np.int16)
     col[1::2] = (halves >> 16).astype(np.uint16).view(np.int16)
-    col = torch.from_numpy(col)
+    return torch.from_numpy(col)
+
+
+def k1_counts(codes, rl, state, maxerrors, minoverlap):
+    ''' K1's per-read counts as the kernel computes them, in plain torch '''
+    m, _ = staged_counts(codes, state)
+    return pass_bits(m, rl, state, maxerrors, minoverlap).sum(dim=1) \
+        .to(torch.int32)
+
+
+def pass_bits(m, rl, state, maxerrors, minoverlap):
+    ''' the screen of K1 (and H1) over the counts ``m [B, columns]``: each
+        pair's pass bit, its count plus the threshold terms with ``k = e +
+        1`` moved into them, clamped to [0, 1]; asserts that every
+        intermediate of its 16-bit halves fits them '''
+    # the terms' halves (minus dm, ovc, seql), MMA columns 2 i and 2 i + 1
+    col = column_halves(state)
     k = maxerrors + 1
     clamp = tps.S1_TERM_CLAMP
     rlv = torch.clamp(rl.long(), max=clamp)[:, None]
@@ -67,7 +89,7 @@ def k1_counts(codes, rl, state, maxerrors, minoverlap):
     x = m + nthr
     for v in (nrl, nrlmo, ovc, sq, first, nthr, x):
         assert int(v.abs().max()) <= INT16_MAX
-    return torch.clamp(x, 0, 1).sum(dim=1).to(torch.int32)
+    return torch.clamp(x, 0, 1)
 
 
 def pallas_counts(codes, rl, state, maxerrors, minoverlap):

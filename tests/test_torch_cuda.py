@@ -24,7 +24,7 @@ from kvarq_tpu_torch.engine import encode, match_pallas, reader
 from kvarq_tpu_torch.engine import pallas_scan as tps
 from kvarq_tpu_torch.engine import tensor_scan as tts
 
-from _torch_cases import case
+from _torch_cases import case, periodic_case
 from test_engine import SEQS7
 
 pytestmark = pytest.mark.cuda
@@ -786,6 +786,76 @@ def test_hit_kernel_long_reads(cuda, nch):
         assert len(_hits_equal(c, r, state, form, ((2, 10), (3, 8)))) > 0
 
 
+@pytest.mark.parametrize('nch', [4, 5])
+def test_hit_kernel_at_capacity(cuda, nch):
+    ''' a capacity of exactly the triplets, and one below them (a count of
+        capacity + 1): the counter ends at the number of triplets either
+        way, every slot below the capacity holds a distinct triplet of the
+        set, and the matcher's readback reruns at the next power of two '''
+    from kvarq_tpu_torch.engine import match_xla
+    seqs, state = _state(cuda, 'MTBC', 128, nch)
+    codes, rl = _planted_reads(np.random.RandomState(31 + nch), seqs, 577,
+                               128, nch)
+    c, r = torch.from_numpy(codes).to(cuda), torch.from_numpy(rl).to(cuda)
+    want = _tri_set(_hits_equal(c, r, state, 'dense', ((2, 25),)))
+    n = len(want)
+    assert n > 64
+    for cap in (n, n - 1):
+        got, count = tps.triplets_to_host(*tps.hit_triplets(c, r, state, 2,
+                                                            25, cap=cap))
+        assert count == n and len(got) == cap
+        assert len(np.unique(got, axis=0)) == cap
+        assert {tuple(t) for t in got} <= {tuple(t) for t in want}
+        got, _ = match_xla.read_triplets(c, r, state, 2, 25, cap=cap)
+        np.testing.assert_array_equal(_tri_set(got), want)
+
+
+@pytest.mark.parametrize('nch', [4, 5])
+@pytest.mark.parametrize('Lpad', [64, 128, 192])
+def test_hit_kernel_full_warps(cuda, nch, Lpad):
+    ''' one read repeated against a periodic template: stages in which
+        every lane of a warp has pairs with w > 0 (tests/
+        test_torch_hit_terms.py shows it on the same inputs), so that every
+        lane of the warp claims slots at once; dense and gathered '''
+    seqs, codes, rl, bank = periodic_case(nch, 4096, Lpad)
+    state = tps.device_arrays(bank, len(seqs), cuda)
+    c, r = torch.from_numpy(codes).to(cuda), torch.from_numpy(rl).to(cuda)
+    for form in ('dense', 'gathered'):
+        assert len(_hits_equal(c, r, state, form, ((2, 25), (0, 25)))) \
+            > 10 * len(codes)
+
+
+@pytest.mark.parametrize('form', ['dense', 'gathered'])
+@pytest.mark.parametrize('nch', [4, 5])
+def test_hit_kernel_profile_buffer(cuda, nch, form):
+    ''' H1 with its profile buffer: the same triplets and count as
+        without it, and the consumer warpgroups' phases add up to no more
+        than their total and to most of it '''
+    seqs, state = _state(cuda, 'MTBC', 128, nch)
+    codes, rl = _planted_reads(np.random.RandomState(41 + nch), seqs, 577,
+                               128, nch)
+    c, r = torch.from_numpy(codes).to(cuda), torch.from_numpy(rl).to(cuda)
+    args = () if form == 'dense' else tps.compact(tps.cand_counts(
+        c, r, state, 2, 25, nch) > 0)
+    cap = tps.triplets_to_host(*tps.hit_triplets_ref(
+        c, r, state, 2, 25, *args, cap=None))[1]
+    assert cap > 0
+    want, wn = tps.triplets_to_host(*tps.hit_triplets(c, r, state, 2, 25,
+                                                      *args, cap=cap))
+    prof = torch.zeros(len(tps.PROFILE_PHASES), dtype=torch.int64,
+                       device=cuda)
+    got, gn = tps.triplets_to_host(*tps.hit_triplets(
+        c, r, state, 2, 25, *args, cap=cap, profile=prof))
+    assert gn == wn == cap
+    np.testing.assert_array_equal(_tri_set(got), _tri_set(want))
+    cyc = dict(zip(tps.PROFILE_PHASES, prof.tolist()))
+    phases = sum(cyc[k] for k in ('build', 'mma', 'screen', 'drain', 'wait'))
+    assert 0 < phases <= cyc['total'] and phases >= 0.8 * cyc['total']
+    assert cyc['drain'] > 0 and cyc['stage'] > 0
+    with pytest.raises(ValueError):
+        tps.hit_triplets(c, r, state, 2, 25, *args, profile=prof.cpu())
+
+
 def test_hit_triplets_rejects_bad_input(cuda):
     seqs, codes, rl, bank = case(3, 4)
     state = tps.device_arrays(bank, len(seqs), cuda)
@@ -801,6 +871,10 @@ def test_hit_triplets_rejects_bad_input(cuda):
                      ((c, r), dict(cap=-1)), ((c, r), dict(cap=None))):
         with pytest.raises(ValueError):
             tps.hit_triplets(args[0], args[1], state, 0, 25, *args[2:], **kw)
+    # the drain reads a pass of the screen as mode_weights' test of the
+    # count only while its clamped terms compare as the true ones
+    with pytest.raises(RuntimeError):
+        tps.hit_triplets(c, r, state, 16383 - 2 * c.shape[1], 25)
 
 
 def _host_waits(fn):
