@@ -1,0 +1,5 @@
+'''
+``cov_reads_per_s``: reads a second of the coverage scans (``layers.reads_per_s``).
+'''
+
+from perfbench.lib.layers import reads_per_s as read  # noqa: F401
