@@ -24,6 +24,7 @@ from kvarq_tpu_torch.config import default_config
 from kvarq_tpu_torch.fastq import Fastq
 from kvarq_tpu_torch.legacy import convert_legacy_data
 from kvarq_tpu_torch.log import format_traceback, lo, tictoc
+from kvarq_tpu_torch.profiling import span
 from kvarq_tpu_torch.versions import StrictVersion
 
 
@@ -261,8 +262,9 @@ class Analyser:
             configuration, which the result json records. '''
         self._record_fastq(fastq)
         self.testsuites = testsuites
-        self.coverages = self.load_coverages(testsuites,
-                                             spacing=self.spacing)
+        with span('analyse.coverages'):
+            self.coverages = self.load_coverages(testsuites,
+                                                 spacing=self.spacing)
         self.config = engine.get_config()
 
         seqs = [c.plus_seq.bases for c in self.coverages.values()]
@@ -285,13 +287,14 @@ class Analyser:
             self.hits = self.hitseqs = None
             n = len(self.coverages)
             counts = ret['basecounts']
-            for i, coverage in enumerate(self.coverages.values()):
-                fold_into_coverage(
-                    coverage, counts[i],
-                    counts[n + i] if do_reverse else None)
+            with span('engine.fold'):
+                for i, coverage in enumerate(self.coverages.values()):
+                    fold_into_coverage(
+                        coverage, counts[i],
+                        counts[n + i] if do_reverse else None)
             self.scantime = time.time() - started
 
-    @tictoc('update_coverages')
+    @tictoc('analyse.replay')
     def update_coverages(self):
         ''' replay ``.hits`` into ``.coverages``; strand demultiplexed by
             ``seq_nr`` (analyse.py:368-381) '''
@@ -340,7 +343,7 @@ class Analyser:
             info['phases'] = self.phases
         return info
 
-    @tictoc('encode')
+    @tictoc('analyse.encode')
     def encode(self, hits=False):
         ''' json-able dict: analyses/info/stats/coverages[/hits,hitseqs]
             (analyse.py:397-435) '''
@@ -413,7 +416,7 @@ class Analyser:
             coverage.deserialize(serialized)
             self.coverages[name] = coverage
 
-    @tictoc('decode')
+    @tictoc('analyse.decode')
     def decode(self, testsuites, data):
         ''' inverse of :py:meth:`encode`, with legacy format conversion and
             per-testsuite version gates (analyse.py:438-534) '''
@@ -422,7 +425,7 @@ class Analyser:
         self._gate_testsuites(testsuites, data['info']['testsuites'])
         self._rebuild_coverages(testsuites, data['coverages'])
 
-    @tictoc('extract_hits')
+    @tictoc('analyse.extract_hits')
     def extract_hits(self, fname):
         ''' write the full FastQ records of all hits to ``fname`` '''
         with open(fname, 'w') as out:

@@ -9,11 +9,12 @@ CPU (``--backend cpu``), with the host's numpy matcher (``--backend
 numpy``) or, with ``--backend auto``, with numpy on a small input while
 CUDA is cold and on the card otherwise; ``-H``/``-x`` run the hit-list
 scan;
-``--profile`` records phase times and a torch.profiler trace
-(kvarq_tpu_torch.profiling); ``--mesh`` shards either path over a
-``('data', 'bank')`` device mesh (kvarq_tpu_torch.parallel).  ``batch``
-(:py:func:`cmd_batch`) scans a corpus, sharded over the processes of a
-Gloo group (kvarq_tpu_torch.parallel.multihost) and the devices of each.
+``--profile`` records phase times and a torch.profiler trace with the
+spans of every thread of the scan (kvarq_tpu_torch.profiling);
+``--mesh`` shards either path over a ``('data', 'bank')`` device mesh
+(kvarq_tpu_torch.parallel).  ``batch`` (:py:func:`cmd_batch`) scans a
+corpus, sharded over the processes of a Gloo group
+(kvarq_tpu_torch.parallel.multihost) and the devices of each.
 ``illustrate``, ``show``, ``update``, ``summarize``, ``info`` and
 ``version`` read and write result files as kvarq_tpu's do.  ``gui`` and
 ``explorer`` open the port's Tk windows (kvarq_tpu_torch.gui); they import
@@ -21,6 +22,7 @@ tkinter when they run, so every other command runs on a host without it.
 '''
 
 import argparse
+import contextlib
 import json
 import os
 import os.path
@@ -29,12 +31,12 @@ import threading
 import time
 from pprint import pprint
 
-from kvarq_tpu_torch import VERSION, analyse, engine, genes
+from kvarq_tpu_torch import VERSION, analyse, engine, genes, profiling
 from kvarq_tpu_torch.config import default_config
 from kvarq_tpu_torch.fastq import Fastq, FastqFileFormatException
 from kvarq_tpu_torch.log import (appendlog, format_traceback, lo, set_debug,
                                  set_warning)
-from kvarq_tpu_torch.profiling import ScanProfiler
+from kvarq_tpu_torch.profiling import ScanProfiler, span
 from kvarq_tpu_torch.testsuites import (discover_testsuites, load_testsuites,
                                         update_testsuites)
 from kvarq_tpu_torch.util import (JsonSummary, ProgressBar, TextHist,
@@ -228,6 +230,13 @@ def _testsuites(args):
 
 
 def cmd_scan(args):
+    # --profile records the spans of every thread for its trace
+    with (profiling.recording() if args.profile
+          else contextlib.nullcontext()):
+        _run_scan(args)
+
+
+def _run_scan(args):
     backend, dev = _backend(args)
     mesh = None
     if args.mesh:
@@ -237,14 +246,14 @@ def cmd_scan(args):
             mesh = parallel.parse_mesh(args.mesh, dev)
         except (RuntimeError, ValueError) as e:
             _fail(e)
-    testsuites = _testsuites(args)
-
-    try:
-        fastq = Fastq(args.fastq, paired=not args.no_paired,
-                      variant=args.variant)
-    except FastqFileFormatException as e:
-        lo.error('cannot open file %s : %s' % (args.fastq, str(e)))
-        sys.exit(ERROR_FASTQ_FORMAT_ERROR)
+    with span('cli.load'):
+        testsuites = _testsuites(args)
+        try:
+            fastq = Fastq(args.fastq, paired=not args.no_paired,
+                          variant=args.variant)
+        except FastqFileFormatException as e:
+            lo.error('cannot open file %s : %s' % (args.fastq, str(e)))
+            sys.exit(ERROR_FASTQ_FORMAT_ERROR)
 
     engine.config(nthreads=args.threads,
                   maxerrors=args.errors,
@@ -289,7 +298,8 @@ def cmd_scan(args):
         analyser.phases = prof.stop()
         lo.info('phases: %s' % ' '.join(
             '%s=%.3fs' % kv for kv in sorted(prof.phases.items())))
-    _write_result(analyser.encode(hits=args.hits), args.json)
+    with span('cli.write'):
+        _write_result(analyser.encode(hits=args.hits), args.json)
     if args.extract_hits:
         analyser.extract_hits(args.extract_hits)
 
@@ -736,7 +746,8 @@ _COMMANDS = [
         _arg('--profile', metavar='DIR',
              help='record per-phase wall times into the result json '
                   '(info.phases) and write a torch.profiler trace of the '
-                  'host and the card to DIR'),
+                  'host and the card to DIR, with the spans of every '
+                  'thread of the scan (the reader\'s among them)'),
         _arg('-f', '--force', action='store_true',
              help='overwrite any existing .json file'),
         _arg('-H', '--hits', action='store_true',

@@ -75,15 +75,13 @@ constexpr uint8_t CODE_READ_JUNK = 5;  // kvarq_tpu/engine/encode.py
 // dispatch is cheap and overlap wins.
 constexpr int64_t DEFAULT_PARSE_CAP = 4 * 262144;
 
-// $KVARQ_PROF=1: aggregate per-phase cycle counters (printed to stderr
-// at kvq_close) -- development aid for placing optimization effort;
-// zero overhead when off (single branch per phase)
-inline bool prof_enabled() {
-    static const bool on = [] {
-        const char* e = std::getenv("KVARQ_PROF");
-        return e && e[0] && e[0] != '0';
-    }();
-    return on;
+// the profile (kvq_set_prof / kvq_prof) counts time in ticks of
+// prof_now, converted to nanoseconds when it is read; each of its sites
+// is one branch while it is off
+inline int64_t mono_ns() {
+    struct timespec ts;
+    clock_gettime(CLOCK_MONOTONIC, &ts);
+    return (int64_t)ts.tv_sec * 1000000000 + ts.tv_nsec;
 }
 
 inline uint64_t prof_now() {
@@ -92,10 +90,13 @@ inline uint64_t prof_now() {
     __asm__ __volatile__("rdtsc" : "=a"(lo), "=d"(hi));
     return ((uint64_t)hi << 32) | lo;
 #else
-    struct timespec ts;
-    clock_gettime(CLOCK_MONOTONIC, &ts);
-    return (uint64_t)ts.tv_sec * 1000000000ull + ts.tv_nsec;
+    return (uint64_t)mono_ns();
 #endif
+}
+
+// the ticks since t0 added to *acc, where the profile is on (t0 != 0)
+inline void prof_add(std::atomic<uint64_t>* acc, uint64_t t0) {
+    if (t0) acc->fetch_add(prof_now() - t0, std::memory_order_relaxed);
 }
 
 struct Stream {
@@ -132,6 +133,9 @@ struct Stream {
     const uint8_t* map = nullptr;
     size_t map_size = 0;
     size_t map_advised = 0;      // readahead high-water (madvise WILLNEED)
+    // the busy ticks of this stream's decode threads once the profile
+    // is on (Reader::prof_inflate, set by kvq_set_prof), else null
+    std::atomic<uint64_t>* inflate_ticks = nullptr;
 };
 
 // background decode of a whole (small) gz file with libdeflate (~3x
@@ -143,6 +147,7 @@ struct BgDecode {
     std::thread thr;
     std::atomic<int> state{1};
     std::vector<uint8_t> dec;
+    std::atomic<uint64_t>* inflate_ticks = nullptr;   // Stream's
 };
 
 // pipelined streaming decode for big plain-gzip files: a dedicated thread
@@ -186,6 +191,7 @@ struct BgzfDecode {
     std::string error;           // guarded by m
     std::string fname;
     int fd = -1;
+    std::atomic<uint64_t>* inflate_ticks = nullptr;   // Stream's
     static constexpr size_t WINDOW = 64;   // blocks in flight (<= 4 MB)
 };
 
@@ -286,6 +292,7 @@ void bgzf_worker_main(BgzfDecode* bz) {
             });
             if (bz->abandon) break;
         }
+        const uint64_t t0 = bz->inflate_ticks ? prof_now() : 0;
         const BgzfBlock& blk = bz->blocks[i];
         std::vector<uint8_t> cbuf((size_t)blk.csize);
         std::vector<uint8_t> dec((size_t)blk.isize);
@@ -298,6 +305,7 @@ void bgzf_worker_main(BgzfDecode* bz) {
                      &out) == LIBDEFLATE_SUCCESS
                  && out == (size_t)blk.isize;
         }
+        prof_add(bz->inflate_ticks, t0);
         {
             std::lock_guard<std::mutex> l(bz->m);
             if (!ok) {
@@ -337,6 +345,7 @@ struct WorkItem {
     int64_t rls[MAX_READLENGTH] = {};
     int64_t rls_longest = -1;
     int64_t nrecords = 0;
+    uint64_t sieve_ticks = 0;   // the profile's, merged by the consumer
     bool has_error = false;
     std::string error;
 };
@@ -444,15 +453,18 @@ struct Reader {
     WorkItem* cur = nullptr;        // partially drained item
     size_t cur_i = 0;
 
-    // $KVARQ_PROF phase cycle counters (see prof_enabled)
-    mutable std::atomic<uint64_t> prof_fill{0};    // stream fill/inflate
-    mutable std::atomic<uint64_t> prof_split{0};   // record-span splitting
-    mutable std::atomic<uint64_t> prof_trim{0};    // parse checks + trim
-    mutable std::atomic<uint64_t> prof_sieve{0};   // k-mer sieve
-    mutable std::atomic<uint64_t> prof_pack{0};    // batch packing/encode
-    mutable std::atomic<uint64_t> prof_item{0};    // process_item total
-    mutable std::atomic<uint64_t> prof_inwait{0};  // in_mtx acquisition wait
-    mutable std::atomic<uint64_t> prof_outwait{0}; // consumer out_cv wait
+    // reads kvq_next delivered: those that passed the sieve
+    int64_t survivors = 0;
+
+    // the profile (kvq_set_prof, read by kvq_prof), in ticks of
+    // prof_now: the sieve's, summed over the threads that parse and
+    // merged by the thread that calls kvq_next, and the decode threads'
+    // busy time; the clocks at kvq_set_prof convert them to nanoseconds
+    bool prof = false;
+    uint64_t prof_sieve = 0;
+    std::atomic<uint64_t> prof_inflate{0};
+    uint64_t prof_tick0 = 0;
+    int64_t prof_ns0 = 0;
 };
 
 void update_total(Reader* r) {
@@ -481,6 +493,7 @@ void ring_fast_main(Stream* s) {
     std::vector<uint8_t> buf(WIN + CH);
     size_t hist = 0;
     for (;;) {
+        const uint64_t t0 = s->inflate_ticks ? prof_now() : 0;
         long n = kvq_fast::decode_some(d, buf.data() + WIN, CH, hist);
         std::string err;
         bool at_end = false;
@@ -510,6 +523,7 @@ void ring_fast_main(Stream* s) {
                          buf.data() + WIN + (size_t)n - keep, keep);
             hist = keep;
         }
+        prof_add(s->inflate_ticks, t0);
         std::unique_lock<std::mutex> l(rd->m);
         rd->cv_space.wait(l, [&] {
             return rd->abandon || rd->qbytes < RingDecode::MAX_BYTES;
@@ -556,6 +570,7 @@ void ring_zlib_main(Stream* s) {
     }
 #endif
     for (;;) {
+        const uint64_t t0 = s->inflate_ticks ? prof_now() : 0;
         std::vector<uint8_t> out(1u << 20);
         size_t got = 0;
         std::string err;
@@ -602,6 +617,7 @@ void ring_zlib_main(Stream* s) {
             }
         }
         out.resize(got);
+        prof_add(s->inflate_ticks, t0);
         std::unique_lock<std::mutex> l(rd->m);
         rd->cv_space.wait(l, [&] {
             return rd->abandon || rd->qbytes < RingDecode::MAX_BYTES;
@@ -700,6 +716,7 @@ bool open_stream(Stream& s, std::string* err, int nthreads) {
                     s.bgzf->blocks = std::move(blocks);
                     s.bgzf->fname = s.fname;
                     s.bgzf->fd = fd;
+                    s.bgzf->inflate_ticks = s.inflate_ticks;
                     s.known_total = total;
                     int nthr = nthreads < 1 ? 1 : nthreads;
                     if (nthr > 8) nthr = 8;
@@ -742,6 +759,7 @@ bool open_stream(Stream& s, std::string* err, int nthreads) {
         bool fast_ring = s.map && !(ff2 && ff2[0] == '0');
         if (ld_ok && !fast_ring && s.fsize > 0 && s.fsize <= bgcap) {
             s.bg = new BgDecode();
+            s.bg->inflate_ticks = s.inflate_ticks;
             s.bg->thr = std::thread(bg_decode_main, s.bg, s.fname, s.fsize);
         }
 #else
@@ -938,6 +956,12 @@ static int64_t mem_available_bytes() {
 // ratio -- just marks the decode unusable (state 3); the concurrent zlib
 // streaming path keeps going and reports errors with its own messages.
 void bg_decode_main(BgDecode* bg, std::string fname, int64_t fsize) try {
+    // busy for the whole of its life: read, decode, done
+    struct Busy {
+        std::atomic<uint64_t>* acc;
+        uint64_t t0;
+        ~Busy() { prof_add(acc, t0); }
+    } busy{bg->inflate_ticks, bg->inflate_ticks ? prof_now() : 0};
     FILE* f = std::fopen(fname.c_str(), "rb");
     std::vector<uint8_t> in((size_t)fsize);
     bool ok = f && std::fread(in.data(), 1, in.size(), f) == in.size();
@@ -1545,12 +1569,13 @@ bool sieve_candidate_fast(const Reader* r, const uint8_t* rp, int rl) {
 // Parse sanity checks + quality trim + sieve for the record whose four
 // line-end newlines are nls[0..3] within `b` (record starts at `p`);
 // `base_off` is the global decompressed offset of b[0].  Histogram
-// updates go to rls / rls_longest (caller-owned).
+// updates go to rls / rls_longest, the sieve's ticks under the profile
+// to *sieve_ticks (all caller-owned).
 // Returns 1 = emit read (sets *rl_out / *bs_out), 0 = drop,
 // -1 = format error (sets *err).
 int handle_record(const Reader* r, const uint8_t* b, size_t p,
                   const size_t nls[4], int64_t base_off,
-                  int64_t* rls, int64_t* rls_longest,
+                  int64_t* rls, int64_t* rls_longest, uint64_t* sieve_ticks,
                   int* rl_out, size_t* bs_out, std::string* err) {
     if (b[p] != '@') {
         char msg[96];
@@ -1576,7 +1601,6 @@ int handle_record(const Reader* r, const uint8_t* b, size_t p,
     // '\r' < any sane amin -- matched by byte comparison either way.
     // SWAR fast path: most lines pass entirely, and the prefix run up to
     // the first failing byte is the first candidate for "longest".
-    const uint64_t prof_t0 = prof_enabled() ? prof_now() : 0;
     const int amin = r->amin;
     size_t qs = nls[2] + 1, qe = nls[3];
     size_t f = first_below(b + qs, qe - qs, (uint8_t)amin);
@@ -1596,25 +1620,17 @@ int handle_record(const Reader* r, const uint8_t* b, size_t p,
     rls[hrl]++;
     if (rl > *rls_longest) *rls_longest = rl;
 
-    uint64_t prof_t1 = 0;
-    if (prof_t0) {
-        prof_t1 = prof_now();
-        r->prof_trim.fetch_add(prof_t1 - prof_t0,
-                               std::memory_order_relaxed);
-    }
-
     if (rl < r->minreadlength || rl <= 0)
         return 0;
 
     size_t bs = nls[0] + 1 + (size_t)best_off;  // trimmed read start
 
     if (r->sieve_start && rl >= r->sieve_k) {
+        const uint64_t t0 = r->prof ? prof_now() : 0;
         const bool cand = r->sieve_has2
             ? sieve_candidate_fast(r, b + bs, rl)
             : sieve_candidate_base5(r, b + bs, rl);
-        if (prof_t1)
-            r->prof_sieve.fetch_add(prof_now() - prof_t1,
-                                    std::memory_order_relaxed);
+        if (t0) *sieve_ticks += prof_now() - t0;
         if (!cand) return 0;
     }
 
@@ -1662,14 +1678,10 @@ void wake_consumer(Reader* r, std::unique_lock<std::mutex>& in_lock) {
 // :696-718 -- but via exact 4-newline counting instead of the rewind
 // heuristic).  Returns nullptr at EOF / error / stop.
 WorkItem* pull_work(Reader* r) {
-    // in_mtx wait time is THE scaling diagnostic: everything under the
-    // lock (fill/inflate, newline split, span copy) is the serialized
-    // fraction that caps worker fan-out (Amdahl) -- see the nthreads
-    // sweep in docs/performance.md
-    const uint64_t w0 = prof_enabled() ? prof_now() : 0;
+    // everything under in_mtx (fill/inflate, newline split, span copy)
+    // is the serialized fraction that caps worker fan-out (Amdahl) --
+    // see the nthreads sweep in docs/performance.md
     std::unique_lock<std::mutex> l(r->in_mtx);
-    if (w0) r->prof_inwait.fetch_add(prof_now() - w0,
-                                     std::memory_order_relaxed);
     for (;;) {
         if (r->stopping || r->split_failed || r->split_eof) return nullptr;
 #ifdef KVARQ_HAVE_MMAP
@@ -1721,7 +1733,6 @@ WorkItem* pull_work(Reader* r) {
                 s.map_advised += ahead;
             }
 #endif
-            const uint64_t mt0 = prof_enabled() ? prof_now() : 0;
             size_t window = mavail < WORKCHUNK ? mavail : WORKCHUNK;
             std::vector<int32_t> nls;
             nls.reserve(window / 48 + 8);
@@ -1742,8 +1753,6 @@ WorkItem* pull_work(Reader* r) {
                 break;
             }
             const size_t nrec4m = nls.size() & ~(size_t)3;
-            if (mt0) r->prof_split.fetch_add(prof_now() - mt0,
-                                             std::memory_order_relaxed);
             if (!nrec4m) {
                 // no complete record left in the mapping: hand the tail
                 // to the buffered path so a record may span into the
@@ -1774,10 +1783,7 @@ WorkItem* pull_work(Reader* r) {
 #endif
         size_t avail = r->buf.size() - r->buf_pos;
         if (avail < WORKCHUNK && !r->at_eof) {
-            const uint64_t t0 = prof_enabled() ? prof_now() : 0;
             long n = fill_buf(r);
-            if (t0) r->prof_fill.fetch_add(prof_now() - t0,
-                                           std::memory_order_relaxed);
             if (n < 0) {
                 r->split_error = r->error;
                 r->split_failed = true;
@@ -1789,7 +1795,6 @@ WorkItem* pull_work(Reader* r) {
         // find the end of the last complete record (every 4th newline)
         // with ONE SIMD newline scan whose positions the worker's
         // record parse then reuses (it previously re-scanned the span)
-        const uint64_t st0 = prof_enabled() ? prof_now() : 0;
         const uint8_t* base = r->buf.data();
         const size_t start = r->buf_pos;
         size_t scan_end = start + (avail < WORKCHUNK ? avail : WORKCHUNK);
@@ -1810,8 +1815,6 @@ WorkItem* pull_work(Reader* r) {
         if (nrec4)
             last_rec_end = start + (size_t)nls[nrec4 - 1] + 1;
         nls.resize(nrec4);
-        if (st0) r->prof_split.fetch_add(prof_now() - st0,
-                                         std::memory_order_relaxed);
         if (last_rec_end == 0) {
             if (!r->at_eof) {      // need more data for one record
                 if (fill_buf(r) < 0) {
@@ -1840,7 +1843,6 @@ WorkItem* pull_work(Reader* r) {
 
 // parse + trim + sieve every record of the item into its local outputs
 void process_item(Reader* r, WorkItem* it) {
-    const uint64_t it0 = prof_enabled() ? prof_now() : 0;
     const uint8_t* b = it->ext ? it->ext : it->data.data();
     const size_t len = it->ext ? it->ext_len : it->data.size();
 
@@ -1862,7 +1864,7 @@ void process_item(Reader* r, WorkItem* it) {
         int rl = 0;
         size_t bs = 0;
         int ret = handle_record(r, b, p, nls, it->offset,
-                                it->rls, &it->rls_longest,
+                                it->rls, &it->rls_longest, &it->sieve_ticks,
                                 &rl, &bs, &it->error);
         if (ret < 0) {
             it->has_error = true;
@@ -1879,8 +1881,6 @@ void process_item(Reader* r, WorkItem* it) {
     // the positions are dead now; free them before the item parks in
     // the ordered completion queue
     std::vector<int32_t>().swap(it->nl);
-    if (it0) r->prof_item.fetch_add(prof_now() - it0,
-                                    std::memory_order_relaxed);
 }
 
 void worker_main(Reader* r) {
@@ -1926,10 +1926,7 @@ long next_threaded(Reader* r, long cap, long lmax, uint8_t* raw,
                     *batch_maxrl = maxrl;
                     return out;   // true EOF
                 }
-                const uint64_t ow0 = prof_enabled() ? prof_now() : 0;
                 r->out_cv.wait(l);
-                if (ow0) r->prof_outwait.fetch_add(
-                    prof_now() - ow0, std::memory_order_relaxed);
             }
             // merge the item's stats in record order
             r->records_parsed = r->records_parsed + r->cur->nrecords;
@@ -1937,10 +1934,10 @@ long next_threaded(Reader* r, long cap, long lmax, uint8_t* raw,
                 r->rls[i] += r->cur->rls[i];
             if (r->cur->rls_longest > r->rls_longest)
                 r->rls_longest = r->cur->rls_longest;
+            r->prof_sieve += r->cur->sieve_ticks;
             consumed += r->cur->nrecords;
         }
         WorkItem* it = r->cur;
-        const uint64_t pt0 = prof_enabled() ? prof_now() : 0;
         while (out < cap && r->cur_i < it->cands.size()) {
             const CandRec& c = it->cands[r->cur_i];
             if (c.rl > lmax) {
@@ -1962,8 +1959,6 @@ long next_threaded(Reader* r, long cap, long lmax, uint8_t* raw,
             out++;
             r->cur_i++;
         }
-        if (pt0) r->prof_pack.fetch_add(prof_now() - pt0,
-                                        std::memory_order_relaxed);
         if (r->cur_i >= it->cands.size()) {
             bool had_error = it->has_error;
             if (had_error) r->error = it->error;
@@ -2202,20 +2197,58 @@ void kvq_stats(Reader* r, int64_t* records_parsed, int64_t* parsed,
     if (rls) std::memcpy(rls, r->rls, sizeof(r->rls));
 }
 
+// turn the profile on: the sieve's and the decode threads' time, for
+// kvq_prof.  Call before the first kvq_next.
+void kvq_set_prof(Reader* r) {
+    r->prof = true;
+    r->prof_tick0 = prof_now();
+    r->prof_ns0 = mono_ns();
+    for (auto& s : r->streams) s.inflate_ticks = &r->prof_inflate;
+}
+
+// out[0..3]: nanoseconds in the sieve, summed over the threads that
+// parse; nanoseconds the decode threads were busy; the records parsed;
+// the reads delivered (those that passed the sieve).  Both times are 0
+// unless the profile is on; call from the thread that calls kvq_next.
+void kvq_prof(Reader* r, int64_t* out) {
+    const uint64_t dt = prof_now() - r->prof_tick0;
+    const double ns_per_tick =
+        dt ? (double)(mono_ns() - r->prof_ns0) / (double)dt : 0.0;
+    out[0] = (int64_t)((double)r->prof_sieve * ns_per_tick);
+    out[1] = (int64_t)((double)r->prof_inflate.load() * ns_per_tick);
+    out[2] = r->records_parsed;
+    out[3] = r->survivors;
+}
+
+static long next_inline(Reader* r, long cap, long lmax, uint8_t* raw,
+                        uint8_t* codes, int32_t* rl_out, int64_t* filepos,
+                        int32_t* batch_maxrl);
+
 // Fill up to `cap` records into the caller's buffers (stride = lmax bytes
 // per row for raw/codes).  Returns #records (0 = EOF), -1 = error, or
 // -2 = a read is longer than lmax: query kvq_pending_rl, grow the
 // buffers and call again (nothing was consumed or double-counted).
 long kvq_next(Reader* r, long cap, long lmax, uint8_t* raw, uint8_t* codes,
               int32_t* rl_out, int64_t* filepos, int32_t* batch_maxrl) {
+    long n;
     if (r->nthreads > 1) {
         if (r->workers.empty() && !r->split_eof && !r->split_failed)
             for (int i = 0; i < r->nthreads; i++)
                 r->workers.emplace_back(worker_main, r);
-        return next_threaded(r, cap, lmax, raw, codes, rl_out, filepos,
-                             batch_maxrl);
+        n = next_threaded(r, cap, lmax, raw, codes, rl_out, filepos,
+                          batch_maxrl);
+    } else {
+        n = next_inline(r, cap, lmax, raw, codes, rl_out, filepos,
+                        batch_maxrl);
     }
+    if (n > 0) r->survivors += n;
+    return n;
+}
 
+// kvq_next with one thread: parse, trim and sieve here
+static long next_inline(Reader* r, long cap, long lmax, uint8_t* raw,
+                        uint8_t* codes, int32_t* rl_out, int64_t* filepos,
+                        int32_t* batch_maxrl) {
     long out = 0;
     int maxrl = 0;
     // with the sieve active one call could otherwise consume the whole
@@ -2253,8 +2286,9 @@ long kvq_next(Reader* r, long cap, long lmax, uint8_t* raw, uint8_t* codes,
         int rl = 0;
         size_t bs = 0;
         int64_t rls_longest = r->rls_longest;
-        int ret = handle_record(r, b, p, nls, r->buf_offset,
-                                r->rls, &rls_longest, &rl, &bs, &r->error);
+        int ret = handle_record(r, b, p, nls, r->buf_offset, r->rls,
+                                &rls_longest, &r->prof_sieve, &rl, &bs,
+                                &r->error);
         r->rls_longest = rls_longest;
         if (ret < 0) return -1;
         if (ret > 0 && rl > lmax) {
@@ -2287,20 +2321,6 @@ long kvq_next(Reader* r, long cap, long lmax, uint8_t* raw, uint8_t* codes,
 void kvq_close(Reader* r) {
     r->stopping = true;
     for (auto& w : r->workers) w.join();
-    if (prof_enabled()) {
-        const uint64_t trim = r->prof_trim.load(), sieve = r->prof_sieve.load();
-        const uint64_t item = r->prof_item.load();
-        std::fprintf(stderr,
-                     "[kvarq-prof] cycles: fill=%.3g split=%.3g trim=%.3g "
-                     "sieve=%.3g pack=%.3g item_other=%.3g inwait=%.3g "
-                     "outwait=%.3g (records=%lld, threads=%d)\n",
-                     (double)r->prof_fill.load(), (double)r->prof_split.load(),
-                     (double)trim, (double)sieve, (double)r->prof_pack.load(),
-                     (double)(item > trim + sieve ? item - trim - sieve : 0),
-                     (double)r->prof_inwait.load(),
-                     (double)r->prof_outwait.load(),
-                     (long long)r->records_parsed, r->nthreads);
-    }
     for (auto& kv : r->completed) delete kv.second;
     delete r->cur;
     for (auto& s : r->streams) close_stream(s);

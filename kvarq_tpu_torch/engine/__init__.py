@@ -40,6 +40,7 @@ import numpy as np
 
 from kvarq_tpu_torch.engine import encode, reader
 from kvarq_tpu_torch.log import lo
+from kvarq_tpu_torch.profiling import span
 
 Hit = collections.namedtuple(
     'Hit', 'seq_nr file_pos seq_pos length readlength')
@@ -280,25 +281,28 @@ def countseqs(fname, seqs):
                 'basecounts': _basecounts_from_hits(hits, hitseqs, seqs),
                 'stats': stats(),
             }
-        scanner = _make_scanner(seqs) if seqs else None
-        sieve = _make_sieve(seqs) if seqs else None
-        if sieve is not None:
-            # sieve-fed batches hold only candidate reads: start dense
-            scanner.assume_dense()
+        with span('engine.bank'):
+            scanner = _make_scanner(seqs) if seqs else None
+            sieve = _make_sieve(seqs) if seqs else None
+            if sieve is not None:
+                # sieve-fed batches hold only candidate reads: start dense
+                scanner.assume_dense()
 
         for batch in _batches(fnames, sieve):
             if scanner is None:
                 continue
-            scanner.scan_batch(batch)
+            with span('engine.scan'):
+                scanner.scan_batch(batch)
             # live counters for stats() polling during the scan
             _seqhits[:] = scanner.seqhits
             _seqbasehits[:] = scanner.seqbasehits
 
         if scanner is not None:
-            scanner.finalize()
-            _seqhits[:] = scanner.seqhits
-            _seqbasehits[:] = scanner.seqbasehits
-            basecounts = scanner.coverages()
+            with span('engine.scan'):
+                scanner.finalize()
+                _seqhits[:] = scanner.seqhits
+                _seqbasehits[:] = scanner.seqbasehits
+                basecounts = scanner.coverages()
         else:
             basecounts = []
         return {
@@ -371,23 +375,27 @@ def findseqs(fname, seqs):
 def _hits(fnames, seqs, numpy_path):
     ''' the hit list and hit sequences of the running scan, on the numpy
         path or the device's '''
-    if not seqs:
-        matcher = None
-    elif numpy_path:
-        from kvarq_tpu_torch.engine.match_numpy import NumpyMatcher
-        matcher = NumpyMatcher(seqs, _config['maxerrors'],
-                               _config['minoverlap'])
-    else:
-        matcher = _make_matcher(seqs)
-    sieve = _make_sieve(seqs) if seqs else None
+    with span('engine.bank'):
+        if not seqs:
+            matcher = None
+        elif numpy_path:
+            from kvarq_tpu_torch.engine.match_numpy import NumpyMatcher
+            matcher = NumpyMatcher(seqs, _config['maxerrors'],
+                                   _config['minoverlap'])
+        else:
+            matcher = _make_matcher(seqs)
+        sieve = _make_sieve(seqs) if seqs else None
     seqlens = [len(s) for s in seqs]
     hits = []
     hitseqs = []
     for batch in _batches(fnames, sieve):
         if matcher is None:
             continue
-        _emit(matcher.match_batch(batch), batch, seqlens,
-              _config['minoverlap'], hits, hitseqs, _seqhits, _seqbasehits)
+        with span('engine.match'):
+            triplets = matcher.match_batch(batch)
+        with span('engine.emit'):
+            _emit(triplets, batch, seqlens, _config['minoverlap'], hits,
+                  hitseqs, _seqhits, _seqbasehits)
     return hits, hitseqs
 
 

@@ -12,6 +12,7 @@ plain C ABI via ctypes) from this package's csrc/reader.cpp into
 pipeline.
 '''
 
+import _ctypes
 import contextlib
 import ctypes
 import fcntl
@@ -21,6 +22,7 @@ import threading
 
 import numpy as np
 
+from kvarq_tpu_torch import profiling
 from kvarq_tpu_torch.log import lo
 from kvarq_tpu_torch.engine import encode, reader
 
@@ -35,6 +37,9 @@ LIB = os.path.join(BUILD, '_reader.so')
 LIB_COMPAT = os.path.join(BUILD, '_reader_compat.so')
 
 MAX_READLENGTH = reader.MAX_READLENGTH
+# the counters of kvq_prof, in its order, as the scan records them
+PROF_COUNTERS = ('reader.sieve_ns', 'reader.inflate_ns', 'reader.records',
+                 'reader.survivors')
 
 
 def _cpu_supports_v3():
@@ -75,6 +80,9 @@ def _load_if_current(lib_path, want_hash):
         lib.kvq_src_hash.restype = ctypes.c_char_p
         if lib.kvq_src_hash().decode() == want_hash:
             return lib
+        # unload it too: dlopen finds a loaded library by its path, and
+        # would hand the stale image back after the rebuild
+        _ctypes.dlclose(lib._handle)
     except (OSError, AttributeError):
         pass
     # stale or unreadable: unlink so the relink creates a fresh inode
@@ -203,6 +211,11 @@ def get_lib():
             ctypes.POINTER(ctypes.c_int32)]
         lib.kvq_pending_rl.restype = ctypes.c_long
         lib.kvq_pending_rl.argtypes = [ctypes.c_void_p]
+        lib.kvq_set_prof.restype = None
+        lib.kvq_set_prof.argtypes = [ctypes.c_void_p]
+        lib.kvq_prof.restype = None
+        lib.kvq_prof.argtypes = [ctypes.c_void_p,
+                                 np.ctypeslib.ndpointer(np.int64, flags='C')]
         lib.kvq_close.argtypes = [ctypes.c_void_p]
         _lib = lib
         return _lib
@@ -222,7 +235,10 @@ def batches(fnames, Amin, minreadlength, stats, batchsize=16384,
         parse/trim/sieve work out over C worker threads pulling
         record-aligned spans from the shared stream (the reference's
         pthread architecture, workhorse.c:1375-1408), with batches still
-        emitted in deterministic record order '''
+        emitted in deterministic record order.  While the scan records
+        (:py:mod:`kvarq_tpu_torch.profiling`) each kvq_next call is the
+        span ``reader.next``, and the reader's :py:data:`PROF_COUNTERS`
+        are counted once at the end '''
     lib = get_lib()
     names = (ctypes.c_char_p * len(fnames))(
         *[f.encode() for f in fnames])
@@ -232,6 +248,9 @@ def batches(fnames, Amin, minreadlength, stats, batchsize=16384,
     parse_cap = int(os.environ.get('KVARQ_PARSE_CAP', '0'))
     h = lib.kvq_open(names, len(fnames), Amin, minreadlength, nthreads,
                      parse_cap)
+    prof = profiling.is_recording()
+    if prof:
+        lib.kvq_set_prof(h)
     if sieve is not None:
         # the C side keeps pointers; hold the arrays until kvq_close
         sieve_arrays = [
@@ -273,28 +292,37 @@ def batches(fnames, Amin, minreadlength, stats, batchsize=16384,
         while True:
             if stop_check is not None and stop_check():
                 break
-            maxrl = ctypes.c_int32()
-            n = lib.kvq_next(h, batchsize, stride, raw, codes,
-                             rl, fp, ctypes.byref(maxrl))
-            sync_stats()
-            if n == -2:
-                stride = reader._round_up(int(lib.kvq_pending_rl(h)))
-                raw = np.zeros((batchsize, stride), dtype=np.uint8)
-                codes = np.zeros((batchsize, stride), dtype=np.uint8)
-                continue
-            if n < 0:
-                raise reader.FastqFormatError(
-                    lib.kvq_error(h).decode())
-            if n == 0:
-                break
-            Lpad = reader._round_up(int(maxrl.value))
-            codes_b = np.ascontiguousarray(codes[:n, :Lpad])
-            raw_b = np.ascontiguousarray(raw[:n, :Lpad])
-            # rows are only filled up to rl by the C side; pad vectorized
-            pad = np.arange(Lpad, dtype=np.int32)[None, :] >= rl[:n, None]
-            codes_b[pad] = encode.CODE_READ_JUNK
-            raw_b[pad] = 0
-            yield reader.RecordBatch(codes_b, rl[:n].copy(),
-                                     fp[:n].copy(), raw_b)
+            with profiling.span('reader.next'):
+                maxrl = ctypes.c_int32()
+                n = lib.kvq_next(h, batchsize, stride, raw, codes,
+                                 rl, fp, ctypes.byref(maxrl))
+                sync_stats()
+                if n == -2:
+                    stride = reader._round_up(int(lib.kvq_pending_rl(h)))
+                    raw = np.zeros((batchsize, stride), dtype=np.uint8)
+                    codes = np.zeros((batchsize, stride), dtype=np.uint8)
+                    continue
+                if n < 0:
+                    raise reader.FastqFormatError(
+                        lib.kvq_error(h).decode())
+                if n == 0:
+                    break
+                Lpad = reader._round_up(int(maxrl.value))
+                codes_b = np.ascontiguousarray(codes[:n, :Lpad])
+                raw_b = np.ascontiguousarray(raw[:n, :Lpad])
+                # rows are only filled up to rl by the C side; pad
+                # vectorized
+                pad = np.arange(Lpad, dtype=np.int32)[None, :] \
+                    >= rl[:n, None]
+                codes_b[pad] = encode.CODE_READ_JUNK
+                raw_b[pad] = 0
+                batch = reader.RecordBatch(codes_b, rl[:n].copy(),
+                                           fp[:n].copy(), raw_b)
+            yield batch
     finally:
+        if prof:
+            counters = np.zeros(len(PROF_COUNTERS), dtype=np.int64)
+            lib.kvq_prof(h, counters)
+            for name, value in zip(PROF_COUNTERS, counters):
+                profiling.count(name, int(value))
         lib.kvq_close(h)

@@ -19,6 +19,7 @@ import os
 import numpy as np
 
 from kvarq_tpu_torch.engine import encode
+from kvarq_tpu_torch.profiling import span
 
 CHUNKSIZE = 8 * 1024 * 1024
 MAX_READLENGTH = 1024  # histogram cap (workhorse.c:105)
@@ -351,7 +352,8 @@ def prefetch(iterator, depth=2):
     t.start()
     try:
         while True:
-            item = q.get()
+            with span('engine.wait'):
+                item = q.get()
             if item is _END:
                 return
             if isinstance(item, BaseException):

@@ -2,8 +2,8 @@
 Logging backbone: everything in the package (including the native reader,
 via its deferred message buffer) logs through the single
 ``kvarq_tpu_torch`` logger created here.  Also provides the
-``tic``/``toc`` wall-clock phase timers whose measurements end up at debug
-level.
+``tic``/``toc`` wall-clock phase timers, spans of
+:py:mod:`kvarq_tpu_torch.profiling` whose lengths end up at debug level.
 
 Console output format is the reference one (kvarq/log.py) so scripts that
 grep stderr keep working.
@@ -13,9 +13,9 @@ import functools
 import logging
 import os.path
 import sys
-import time
 import traceback
 
+from kvarq_tpu_torch.profiling import Span
 from kvarq_tpu_torch.util import is_app, is_exe_gui
 
 LINE_FORMAT = ('[%(asctime)s] -%(levelname)s- '
@@ -96,20 +96,21 @@ def appendlog(fname):
 
 # --- wall-clock phase timers ------------------------------------------------
 
-tictocs = {}
+# the intervals opened by tic and not yet closed by toc, by name
+_open = {}
 
 
 def tic(name):
-    ''' start a named timer (re-entrant: every tic opens a new interval) '''
-    tictocs.setdefault(name, []).append([time.time()])
+    ''' start a named timer (re-entrant: every tic opens a new interval),
+        a span of :py:mod:`kvarq_tpu_torch.profiling` '''
+    _open.setdefault(name, []).append(Span(name).__enter__())
 
 
 def toc(name):
     ''' close the most recent interval of ``name`` and log its duration '''
-    interval = tictocs[name][-1]
-    interval.append(time.time())
-    lo.debug('toc-tic %s : %.2f ms'
-             % (name, 1e3 * (interval[1] - interval[0])))
+    s = _open[name].pop()
+    s.__exit__(None, None, None)
+    lo.debug('toc-tic %s : %.2f ms' % (name, 1e3 * s.seconds))
 
 
 def tictoc(name):

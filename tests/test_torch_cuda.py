@@ -5,7 +5,8 @@ PyTorch versions, the hit matchers' one wait on the host per batch, the scan
 step with no host round trip, scanner, screening matcher and
 ``findseqs`` on CUDA against the same code on the CPU, and the sharded
 scanner and matcher (on a mesh that repeats one card, and over every
-card) against the single-device ones.  Skipped without
+card) against the single-device ones, and the kernels' launches inside
+the engine's spans on the profiler's clock.  Skipped without
 an NVIDIA GPU (a CUDA kernel has no CPU mode); this file imports no jax,
 so it runs where jax is absent:
 
@@ -923,3 +924,53 @@ def test_hit_matchers_wait_on_the_host_once(cuda, mesh):
     assert tps.hit_triplets.launches == before + 1
     assert len(waits) == 1, waits
     np.testing.assert_array_equal(_tri_set(got), _tri_set(want))
+
+
+def test_kernel_launches_lie_in_engine_spans(cuda, tmp_path):
+    ''' on the device trace's clock (an event's ts plus the file's
+        baseTimeNanoseconds), the host call that launches K1, S1 or H1
+        lies inside an ``engine.scan`` or ``engine.match`` span of the
+        scanning thread, within 100 us '''
+    import json
+    import threading
+    from torch.profiler import ProfilerActivity, profile
+    from kvarq_tpu_torch import profiling
+    kernels = ('cand_screen_kernel', 'score_step_kernel',
+               'hit_extract_kernel')
+    counters = (tps.cand_counts, tps.score_candidates, tps.hit_triplets)
+    before = [c.launches for c in counters]
+    try:
+        tengine.config(device='cuda', Amin='!', nthreads=1, maxerrors=1,
+                       minoverlap=10, minreadlength=5)
+        with profiling.recording():
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                tengine.countseqs(FASTQ, SEQS7)
+                tengine.findseqs(FASTQ, SEQS7)
+                torch.cuda.synchronize()
+            rec = profiling.collect()
+    finally:
+        tengine.config(device='cuda')
+    assert all(c.launches > b for c, b in zip(counters, before))
+    path = str(tmp_path / 'trace.json')
+    prof.export_chrome_trace(path)
+    with open(path) as fd:
+        data = json.load(fd)
+    base = int(data['baseTimeNanoseconds'])
+    events = [e for e in data['traceEvents'] if e.get('ph') == 'X']
+    ours = {e['args']['correlation'] for e in events
+            if e.get('cat') == 'kernel'
+            and any(k in e['name'] for k in kernels)}
+    launches = [(base + 1e3 * float(e['ts']),
+                 base + 1e3 * (float(e['ts']) + float(e['dur'])))
+                for e in events if e.get('cat') == 'cuda_runtime'
+                and e['name'].startswith('cudaLaunchKernel')
+                and e.get('args', {}).get('correlation') in ours]
+    me = threading.current_thread().name
+    spans = [(s, e) for n, t, s, e in rec['spans']
+             if t == me and n in ('engine.scan', 'engine.match')]
+    assert launches and spans
+    slack = 100e3
+    for a, b in launches:
+        assert any(s - slack <= a and b <= e + slack for s, e in spans), \
+            (a, b)
