@@ -115,6 +115,9 @@ struct Stream {
     // std::atomic member would delete Stream's move constructor, which
     // the streams vector needs.
     int64_t compressed_read = 0;
+    // the ring decoder's decompressed bytes, the pair of compressed_read
+    // for the size estimate (same access rule)
+    int64_t decoded = 0;
     int64_t produced = 0;       // decompressed bytes yielded
     // background whole-file libdeflate decode (small gz files): once
     // ready, decompressed bytes are served from `bg->dec` instead of
@@ -136,7 +139,15 @@ struct Stream {
     // the busy ticks of this stream's decode threads once the profile
     // is on (Reader::prof_inflate, set by kvq_set_prof), else null
     std::atomic<uint64_t>* inflate_ticks = nullptr;
+    // opened before it became current (open_ahead); its ring may run past
+    // the usual bound until then
+    bool ahead = false;
 };
+
+bool has_gz_suffix(const std::string& fname) {
+    const size_t n = fname.size();
+    return n > 3 && fname.compare(n - 3, 3, ".gz") == 0;
+}
 
 // background decode of a whole (small) gz file with libdeflate (~3x
 // zlib): runs concurrently with the zlib streaming path, which serves
@@ -154,7 +165,8 @@ struct BgDecode {
 // runs the zlib inflate loop (multi-stream restart, trailing-garbage
 // semantics identical to the inline path) into a bounded chunk queue, so
 // decompression overlaps with record parsing/sieving instead of running
-// under the shared stream mutex.  Memory stays flat (MAX_BYTES window).
+// under the shared stream mutex.  Memory stays flat (MAX_BYTES window;
+// `limit` is larger only while the stream is read ahead, see open_ahead).
 struct RingDecode {
     std::thread thr;
     std::mutex m;
@@ -167,6 +179,7 @@ struct RingDecode {
     bool abandon = false;
     std::string error;
     static constexpr size_t MAX_BYTES = 32u << 20;
+    size_t limit = MAX_BYTES;    // the producer waits while qbytes >= limit
 };
 
 // BGZF (bgzip) files -- the block-compressed gzip dialect ubiquitous in
@@ -450,6 +463,10 @@ struct Reader {
     std::atomic<bool> split_eof{false};
     std::atomic<bool> split_failed{false};
     std::string split_error;        // guarded by in_mtx
+    // fill_buf failed (r->error): the complete records still buffered
+    // are split first, as the single-thread reader parses them before it
+    // fails; guarded by in_mtx
+    bool fill_failed = false;
     WorkItem* cur = nullptr;        // partially drained item
     size_t cur_i = 0;
 
@@ -465,6 +482,13 @@ struct Reader {
     std::atomic<uint64_t> prof_inflate{0};
     uint64_t prof_tick0 = 0;
     int64_t prof_ns0 = 0;
+
+    // the bytes a stream opened ahead may queue before it becomes current
+    // (-1: MemAvailable / 12 at the first such open, kvq_set_ahead_budget
+    // otherwise), and the decompressed bytes such streams had queued when
+    // they became current
+    int64_t ahead_budget = -1;
+    std::atomic<int64_t> ahead_bytes{0};
 };
 
 void update_total(Reader* r) {
@@ -473,9 +497,20 @@ void update_total(Reader* r) {
     r->total = t;
 }
 
+// free host memory (Linux MemAvailable); -1 when unknown
+static int64_t mem_available_bytes() {
+    FILE* f = std::fopen("/proc/meminfo", "r");
+    if (!f) return -1;
+    char line[160];
+    long long kb = -1;
+    while (std::fgets(line, sizeof line, f))
+        if (std::sscanf(line, "MemAvailable: %lld kB", &kb) == 1) break;
+    std::fclose(f);
+    return kb > 0 ? (int64_t)kb * 1024 : -1;
+}
+
 #ifdef KVARQ_USE_LIBDEFLATE
 void bg_decode_main(BgDecode* bg, std::string fname, int64_t fsize);
-static int64_t mem_available_bytes();
 #endif
 
 // fast-inflate variant of the ring producer: decodes straight off the
@@ -504,6 +539,7 @@ void ring_fast_main(Stream* s) {
         } else {
             __atomic_store_n(&s->compressed_read,
                              (int64_t)d->byte_pos(), __ATOMIC_RELAXED);
+            __atomic_fetch_add(&s->decoded, (int64_t)n, __ATOMIC_RELAXED);
             if (d->phase == kvq_fast::PH_DONE
                     || d->phase == kvq_fast::PH_TRUNC)
                 at_end = true;
@@ -526,7 +562,7 @@ void ring_fast_main(Stream* s) {
         prof_add(s->inflate_ticks, t0);
         std::unique_lock<std::mutex> l(rd->m);
         rd->cv_space.wait(l, [&] {
-            return rd->abandon || rd->qbytes < RingDecode::MAX_BYTES;
+            return rd->abandon || rd->qbytes < rd->limit;
         });
         if (rd->abandon) {
             delete d;
@@ -617,10 +653,11 @@ void ring_zlib_main(Stream* s) {
             }
         }
         out.resize(got);
+        __atomic_fetch_add(&s->decoded, (int64_t)got, __ATOMIC_RELAXED);
         prof_add(s->inflate_ticks, t0);
         std::unique_lock<std::mutex> l(rd->m);
         rd->cv_space.wait(l, [&] {
-            return rd->abandon || rd->qbytes < RingDecode::MAX_BYTES;
+            return rd->abandon || rd->qbytes < rd->limit;
         });
         if (rd->abandon) return;
         if (got) {
@@ -641,7 +678,11 @@ void ring_zlib_main(Stream* s) {
     }
 }
 
-bool open_stream(Stream& s, std::string* err, int nthreads) {
+// open s for reading and start its decoder.  `ahead_limit` > 0 opens a
+// stream ahead of its turn (open_ahead): a plain ring whose queue may hold
+// that many bytes, with no BGZF pool and no background takeover
+bool open_stream(Stream& s, std::string* err, int nthreads,
+                 size_t ahead_limit = 0) {
     s.f = std::fopen(s.fname.c_str(), "rb");
     if (!s.f) {
         *err = "cannot open '" + s.fname + "'";
@@ -660,8 +701,7 @@ bool open_stream(Stream& s, std::string* err, int nthreads) {
     } else {
         s.fsize = 0;
     }
-    size_t n = s.fname.size();
-    s.is_gz = n > 3 && s.fname.compare(n - 3, 3, ".gz") == 0;
+    s.is_gz = has_gz_suffix(s.fname);
 #ifdef KVARQ_HAVE_MMAP
     if (s.fsize > 0) {
         // regular files are mmap'd.  Plain FastQ: workers split records
@@ -704,7 +744,7 @@ bool open_stream(Stream& s, std::string* err, int nthreads) {
         // the probe RE-OPENS the file, which would steal bytes from a
         // FIFO writer: regular files only (fsize>0 also gates the bg
         // takeover and the mmap fast-inflate below for the same reason)
-        if (ld_ok && is_reg) {
+        if (ld_ok && is_reg && !ahead_limit) {
             // BGZF fast path: any size, parallel per-block decode, exact
             // decompressed size known before the first byte is served
             std::vector<BgzfBlock> blocks;
@@ -757,7 +797,8 @@ bool open_stream(Stream& s, std::string* err, int nthreads) {
         // speed -- skip it
         const char* ff2 = std::getenv("KVARQ_FAST_INFLATE");
         bool fast_ring = s.map && !(ff2 && ff2[0] == '0');
-        if (ld_ok && !fast_ring && s.fsize > 0 && s.fsize <= bgcap) {
+        if (ld_ok && !fast_ring && !ahead_limit && s.fsize > 0
+                && s.fsize <= bgcap) {
             s.bg = new BgDecode();
             s.bg->inflate_ticks = s.inflate_ticks;
             s.bg->thr = std::thread(bg_decode_main, s.bg, s.fname, s.fsize);
@@ -769,6 +810,10 @@ bool open_stream(Stream& s, std::string* err, int nthreads) {
         // (bounded queue, flat memory, any file size) -- replaces the old
         // inline inflate that ran under the shared stream mutex
         s.ring = new RingDecode();
+        if (ahead_limit) {
+            s.ring->limit = ahead_limit;
+            s.ahead = true;
+        }
         s.ring->thr = std::thread(ring_zlib_main, &s);
     }
     return true;
@@ -810,6 +855,72 @@ void close_stream(Stream& s) {
     }
     if (s.z_init) { inflateEnd(&s.zs); s.z_init = false; }
     if (s.f) { std::fclose(s.f); s.f = nullptr; }
+}
+
+// open the stream after the current one now, so that its decoder runs
+// while the current one is parsed: the paired mates of a gzip run then
+// inflate at the same time, each on its own thread, and no byte is decoded
+// twice.  Only where both are regular gzip files and the next is not BGZF
+// (whose block pool decodes in parallel already).  Its ring may queue up
+// to the ahead budget until it becomes current (enter_stream).  A stream
+// that cannot be opened here is left to be opened, and to fail with its
+// usual message, when it becomes current.
+void open_ahead(Reader* r) {
+    const size_t i = r->cur_stream + 1;
+    if (i >= r->streams.size()) return;
+    const Stream& cur = r->streams[i - 1];
+    Stream& s = r->streams[i];
+    if (!cur.is_gz || cur.fsize <= 0 || s.f || !has_gz_suffix(s.fname))
+        return;
+    // stat, not fopen: opening a FIFO takes its writer's one-shot stream
+    struct stat st;
+    if (::stat(s.fname.c_str(), &st) != 0 || !S_ISREG(st.st_mode)
+            || st.st_size <= 0)
+        return;
+#ifdef KVARQ_USE_LIBDEFLATE
+    const char* e = std::getenv("KVARQ_LIBDEFLATE");
+    std::vector<BgzfBlock> blocks;
+    int64_t total = 0;
+    if (!(e && e[0] == '0')
+            && bgzf_probe(s.fname, (int64_t)st.st_size, &blocks, &total))
+        return;
+#endif
+    if (r->ahead_budget < 0) {
+        // the RAM gate of the background takeover (open_stream)
+        const int64_t mem = mem_available_bytes();
+        r->ahead_budget = mem > 0 ? mem / 12 : 0;
+        if (r->ahead_budget < (int64_t)RingDecode::MAX_BYTES)
+            r->ahead_budget = (int64_t)RingDecode::MAX_BYTES;
+    }
+    std::string err;
+    if (open_stream(s, &err, r->nthreads, (size_t)r->ahead_budget))
+        return;
+    // half opened (inflateInit failed): closed again, to be reopened
+    close_stream(s);
+#ifdef KVARQ_HAVE_MMAP
+    if (s.map) {
+        ::munmap((void*)s.map, s.map_size);
+        s.map = nullptr;
+    }
+#endif
+}
+
+// make the current stream ready to read: open it, or, where it was opened
+// ahead, count the bytes it decoded before the consumer reached it and
+// return its ring to the usual bound; then open the next one ahead.
+// Returns false with r->error set when the stream cannot be opened.
+bool enter_stream(Reader* r) {
+    Stream& s = r->streams[r->cur_stream];
+    if (s.ahead) {
+        std::lock_guard<std::mutex> l(s.ring->m);
+        r->ahead_bytes += (int64_t)s.ring->qbytes;
+        s.ring->limit = RingDecode::MAX_BYTES;
+        s.ahead = false;
+    } else if (!open_stream(s, &r->error, r->nthreads)) {
+        return false;
+    }
+    open_ahead(r);
+    return true;
 }
 
 // consume from the RingDecode chunk queue; blocks for data, serves any
@@ -936,20 +1047,6 @@ long stream_read(Stream& s, uint8_t* out, size_t want, std::string* err) {
 // ---- accelerated gz decode ----------------------------------------------
 
 #ifdef KVARQ_USE_LIBDEFLATE
-// free host memory (Linux MemAvailable); -1 when unknown.  Only the
-// libdeflate takeover consults it, so keep it inside the #ifdef (the
-// plain -lz build would otherwise warn about an unused function).
-static int64_t mem_available_bytes() {
-    FILE* f = std::fopen("/proc/meminfo", "r");
-    if (!f) return -1;
-    char line[160];
-    long long kb = -1;
-    while (std::fgets(line, sizeof line, f))
-        if (std::sscanf(line, "MemAvailable: %lld kB", &kb) == 1) break;
-    std::fclose(f);
-    return kb > 0 ? (int64_t)kb * 1024 : -1;
-}
-
 // body of the background decode thread: slurp the compressed file and
 // decode all gzip members (multi-stream semantics, workhorse.c:841-866)
 // into bg->dec.  Any failure -- short read, bad data, pathological
@@ -1037,7 +1134,11 @@ void refine_est(Reader* r, size_t si) {
                   / (double)s.fsize;
     if (frac > 1.0) frac = 1.0;
     if (frac > 1e-9) {
-        int64_t e = (int64_t)((double)s.produced / frac);
+        // the decoder's count pairs with its compressed position: it runs
+        // ahead of the consumer, by the whole file where opened ahead
+        int64_t out = __atomic_load_n(&s.decoded, __ATOMIC_RELAXED);
+        if (out < s.produced) out = s.produced;
+        int64_t e = (int64_t)((double)out / frac);
         r->est[si] = e > s.produced ? e : s.produced;
     }
     update_total(r);
@@ -1055,12 +1156,12 @@ long fill_buf(Reader* r) {
     }
     while (r->cur_stream < r->streams.size()) {
         Stream& s = r->streams[r->cur_stream];
-        if (!s.f && !open_stream(s, &r->error, r->nthreads)) return -1;
+        if ((!s.f || s.ahead) && !enter_stream(r)) return -1;
         size_t old = r->buf.size();
         r->buf.resize(old + CHUNKSIZE);
         long n = stream_read(s, r->buf.data() + old, CHUNKSIZE, &r->error);
+        r->buf.resize(old + (size_t)(n > 0 ? n : 0));
         if (n < 0) return -1;
-        r->buf.resize(old + (size_t)n);
         if (n == 0) {
             // exact size once the file is fully read
             r->est[r->cur_stream] = s.produced;
@@ -1695,8 +1796,8 @@ WorkItem* pull_work(Reader* r) {
         while (r->buf_pos == r->buf.size()
                 && r->cur_stream < r->streams.size()) {
             Stream& s = r->streams[r->cur_stream];
-            if (!s.f) {
-                if (!open_stream(s, &r->error, r->nthreads)) {
+            if (!s.f || s.ahead) {
+                if (!enter_stream(r)) {
                     r->split_error = r->error;
                     r->split_failed = true;
                     wake_consumer(r, l);
@@ -1782,14 +1883,8 @@ WorkItem* pull_work(Reader* r) {
         }
 #endif
         size_t avail = r->buf.size() - r->buf_pos;
-        if (avail < WORKCHUNK && !r->at_eof) {
-            long n = fill_buf(r);
-            if (n < 0) {
-                r->split_error = r->error;
-                r->split_failed = true;
-                wake_consumer(r, l);
-                return nullptr;
-            }
+        if (avail < WORKCHUNK && !r->at_eof && !r->fill_failed) {
+            if (fill_buf(r) < 0) r->fill_failed = true;
             continue;
         }
         // find the end of the last complete record (every 4th newline)
@@ -1816,14 +1911,15 @@ WorkItem* pull_work(Reader* r) {
             last_rec_end = start + (size_t)nls[nrec4 - 1] + 1;
         nls.resize(nrec4);
         if (last_rec_end == 0) {
-            if (!r->at_eof) {      // need more data for one record
-                if (fill_buf(r) < 0) {
-                    r->split_error = r->error;
-                    r->split_failed = true;
-                    wake_consumer(r, l);
-                    return nullptr;
-                }
+            if (!r->at_eof && !r->fill_failed) {   // need more data
+                if (fill_buf(r) < 0) r->fill_failed = true;
                 continue;
+            }
+            if (r->fill_failed) {
+                r->split_error = r->error;
+                r->split_failed = true;
+                wake_consumer(r, l);
+                return nullptr;
             }
             // trailing data without a full record is silently dropped
             // (workhorse.c:1032-1034)
@@ -2005,9 +2101,7 @@ Reader* kvq_open(const char** fnames, int nfiles, int amin,
         int64_t sz = 0;
         if (::stat(s.fname.c_str(), &st) == 0 && S_ISREG(st.st_mode))
             sz = (int64_t)st.st_size;
-        size_t n = s.fname.size();
-        bool gz = n > 3 && s.fname.compare(n - 3, 3, ".gz") == 0;
-        r->est.push_back(gz ? sz * 3 : sz);
+        r->est.push_back(has_gz_suffix(s.fname) ? sz * 3 : sz);
     }
     update_total(r);
     std::memset(r->code_of, CODE_READ_JUNK, sizeof(r->code_of));
@@ -2197,6 +2291,13 @@ void kvq_stats(Reader* r, int64_t* records_parsed, int64_t* parsed,
     if (rls) std::memcpy(rls, r->rls, sizeof(r->rls));
 }
 
+// the bytes a gzip stream opened ahead of its turn may queue until it
+// becomes current, in place of MemAvailable / 12.  Call before the first
+// kvq_next.
+void kvq_set_ahead_budget(Reader* r, long bytes) {
+    r->ahead_budget = bytes > 0 ? bytes : 1;
+}
+
 // turn the profile on: the sieve's and the decode threads' time, for
 // kvq_prof.  Call before the first kvq_next.
 void kvq_set_prof(Reader* r) {
@@ -2206,10 +2307,12 @@ void kvq_set_prof(Reader* r) {
     for (auto& s : r->streams) s.inflate_ticks = &r->prof_inflate;
 }
 
-// out[0..3]: nanoseconds in the sieve, summed over the threads that
+// out[0..4]: nanoseconds in the sieve, summed over the threads that
 // parse; nanoseconds the decode threads were busy; the records parsed;
-// the reads delivered (those that passed the sieve).  Both times are 0
-// unless the profile is on; call from the thread that calls kvq_next.
+// the reads delivered (those that passed the sieve); the decompressed
+// bytes of following streams decoded before the consumer reached them
+// (open_ahead).  Both times are 0 unless the profile is on; call from
+// the thread that calls kvq_next.
 void kvq_prof(Reader* r, int64_t* out) {
     const uint64_t dt = prof_now() - r->prof_tick0;
     const double ns_per_tick =
@@ -2218,6 +2321,7 @@ void kvq_prof(Reader* r, int64_t* out) {
     out[1] = (int64_t)((double)r->prof_inflate.load() * ns_per_tick);
     out[2] = r->records_parsed;
     out[3] = r->survivors;
+    out[4] = r->ahead_bytes.load();
 }
 
 static long next_inline(Reader* r, long cap, long lmax, uint8_t* raw,

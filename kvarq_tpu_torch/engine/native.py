@@ -39,7 +39,7 @@ LIB_COMPAT = os.path.join(BUILD, '_reader_compat.so')
 MAX_READLENGTH = reader.MAX_READLENGTH
 # the counters of kvq_prof, in its order, as the scan records them
 PROF_COUNTERS = ('reader.sieve_ns', 'reader.inflate_ns', 'reader.records',
-                 'reader.survivors')
+                 'reader.survivors', 'reader.ahead_bytes')
 
 
 def _cpu_supports_v3():
@@ -76,13 +76,18 @@ def _load_if_current(lib_path, want_hash):
     if not os.path.exists(lib_path):
         return None
     try:
-        lib = ctypes.CDLL(lib_path)
-        lib.kvq_src_hash.restype = ctypes.c_char_p
-        if lib.kvq_src_hash().decode() == want_hash:
-            return lib
-        # unload it too: dlopen finds a loaded library by its path, and
-        # would hand the stale image back after the rebuild
-        _ctypes.dlclose(lib._handle)
+        # a stale library is never loaded: dlopen finds a loaded library
+        # by its path and would hand the stale image back after the
+        # rebuild, and one with unique symbols (kvq_fast_inflate.h's
+        # tables) stays loaded through dlclose
+        with open(lib_path, 'rb') as fd:
+            embedded = want_hash.encode() in fd.read()
+        if embedded:
+            lib = ctypes.CDLL(lib_path)
+            lib.kvq_src_hash.restype = ctypes.c_char_p
+            if lib.kvq_src_hash().decode() == want_hash:
+                return lib
+            _ctypes.dlclose(lib._handle)
     except (OSError, AttributeError):
         pass
     # stale or unreadable: unlink so the relink creates a fresh inode
@@ -213,6 +218,8 @@ def get_lib():
         lib.kvq_pending_rl.argtypes = [ctypes.c_void_p]
         lib.kvq_set_prof.restype = None
         lib.kvq_set_prof.argtypes = [ctypes.c_void_p]
+        lib.kvq_set_ahead_budget.restype = None
+        lib.kvq_set_ahead_budget.argtypes = [ctypes.c_void_p, ctypes.c_long]
         lib.kvq_prof.restype = None
         lib.kvq_prof.argtypes = [ctypes.c_void_p,
                                  np.ctypeslib.ndpointer(np.int64, flags='C')]

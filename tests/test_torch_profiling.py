@@ -13,6 +13,7 @@ import logging
 import os
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -182,11 +183,50 @@ def test_native_reader_profile_changes_no_batch(tmp_path, gz, nthreads):
     while lib.kvq_next(h, 64, 1024, raw, codes, rl, fp,
                        native.ctypes.byref(maxrl)) > 0:
         pass
-    got = np.zeros(4, np.int64)
+    got = np.zeros(len(native.PROF_COUNTERS), np.int64)
     lib.kvq_prof(h, got)
     lib.kvq_close(h)
     assert list(got) == [0, 0, counts['reader.records'],
-                         counts['reader.survivors']]
+                         counts['reader.survivors'], 0]
+    assert counts['reader.ahead_bytes'] == 0
+
+
+@pytest.mark.parametrize('nthreads', [1, 4])
+@pytest.mark.parametrize('kind', ['plain', 'gz', 'paired_gz'])
+def test_native_reader_counts_the_bytes_decoded_ahead(tmp_path, kind,
+                                                      nthreads):
+    ''' reader.ahead_bytes: the second gzip mate's bytes decoded before
+        the reader reached it, none for a plain file or a single gzip
+        file '''
+    mates = [os.path.join(HERE, 'fastqs', 'L3_N1014_hits_500_%d.fastq' % i)
+             for i in (1, 2)]
+    fnames = [FASTQ]
+    if kind != 'plain':
+        fnames = []
+        for src in [FASTQ] if kind == 'gz' else mates:
+            fnames.append(str(tmp_path / (os.path.basename(src) + '.gz')))
+            with open(src, 'rb') as fd, gzip.open(fnames[-1], 'wb') as dst:
+                dst.write(fd.read())
+    stats = reader.ReaderStats()
+    with profiling.recording():
+        for i, _ in enumerate(native.batches(fnames, ord('!') + 13, 25,
+                                             stats, batchsize=64,
+                                             nthreads=nthreads)):
+            if i == 0:
+                # the first mate's reader pauses: a decoder running
+                # ahead gets the time to fill
+                time.sleep(0.3)
+        counts = profiling.collect()['counts']
+    ahead = counts['reader.ahead_bytes']
+    if kind != 'paired_gz':
+        assert ahead == 0
+        return
+    # with worker threads the reader may reach _2 before its decoder
+    # queued anything; with one it paused inside _1, where nothing of _2
+    # is read
+    assert 0 <= ahead <= os.path.getsize(mates[1])
+    if nthreads == 1:
+        assert ahead == os.path.getsize(mates[1])
 
 
 def test_span_lines_up_with_record_function(tmp_path):
