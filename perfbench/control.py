@@ -62,7 +62,9 @@ def readings(config, traffics, seeds, control_seeds, card=True,
                                          workdir, quals=quals)[0]
                    for k in range(2)]
         t1 = time.perf_counter()
-        expected = [check.Expected(p, config, group) for p in samples]
+        expected = [check.Expected(p, config, group,
+                                   'cuda' if card else 'cpu')
+                    for p in samples]
         t2 = time.perf_counter()
         line = {'seed': seed, 'generation_s': t1 - t0, 'reference_s': t2 - t1}
         for name in traffics:

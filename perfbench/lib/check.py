@@ -1,7 +1,9 @@
 '''
 What decides ``correct``: the result a scan wrote, held against the plain
-reference's (:py:mod:`perfbench.lib.refengine` and the configuration's
-testsuite group under ``perfbench/reference``), field by field.
+reference's (:py:mod:`perfbench.lib.refengine`, its matcher or the
+brute-force one of :py:mod:`perfbench.lib.refexhaustive` by the seed's
+length, and the configuration's testsuite group under
+``perfbench/reference``), field by field.
 
 Every field is compared exactly (the system's counts are exact), so
 each number compared counts differences and its limit is 0:
@@ -22,24 +24,34 @@ import os
 
 import numpy as np
 
-from perfbench.lib import refengine
+from perfbench.lib import refengine, refexhaustive
 
 FIELDS = ('missing', 'calls', 'coverages', 'stats', 'hits', 'info')
 
 
+# the seed length from which the k-mer seeds find the alignments fast;
+# below it (k 6 at e 3, 5 at e 4, overlap 25) a seed hits the templates
+# about a thousand times a read, and the brute-force matcher is faster
+SEED_MIN_K = 8
+
+
 class Expected:
     ''' the reference's results for one sample: its reads parsed and
-        matched once, the result of a coverage or a hit scan under the
-        configuration's maxerrors or fewer (the control) on demand '''
+        matched once (on ``device``, where the brute-force matcher runs),
+        the result of a coverage or a hit scan under the configuration's
+        maxerrors or fewer (the control) on demand '''
 
-    def __init__(self, paths, config, group):
+    def __init__(self, paths, config, group, device='cpu'):
         scan = config['scan']
         buf = refengine.read_stream(paths)
         self.rec = refengine.Records(buf, 33 + scan['quality'],
                                      scan['readlength'])
         self.tpl = refengine.Templates(group.sequences(), scan['errors'],
                                        scan['overlap'], scan['readlength'])
-        self.trip = refengine.match(self.rec, self.tpl)
+        if self.tpl.k >= SEED_MIN_K:
+            self.trip = refengine.match(self.rec, self.tpl)
+        else:
+            self.trip = refexhaustive.match(self.rec, self.tpl, device)
         self.group, self.paths, self.config = group, paths, config
         first = buf[:buf.find(b'\n', buf.find(b'\n') + 1)].split(b'\n')
         self.readlength = len(first[1].rstrip(b'\r')) if len(first) > 1 \

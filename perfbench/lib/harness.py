@@ -19,7 +19,7 @@ import sys
 import tempfile
 import time
 
-from perfbench.lib import check, generator, spec, trace
+from perfbench.lib import check, generator, program, spec, trace
 
 PROGRAM = 'kvarq_tpu_torch'
 # top-level modules no run may hold: JAX, and the JAX package (whose
@@ -89,6 +89,7 @@ class Run:
         self.started = time.perf_counter() if started is None else started
         self.scans = []          # (sample, out path, start, end, exit code)
         self.tr = None
+        self.program = None      # the traced samples' spans and counters
         self.torch = None
         self.dir = None
 
@@ -181,9 +182,11 @@ class Run:
 
     def traced_samples(self):
         ''' a few more samples under torch.profiler, each in a span of its
-            own '''
+            own, with the program's spans and counters recorded (in these
+            samples alone: never in the warm-up or the window) '''
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile, record_function
+        from kvarq_tpu_torch import profiling
         from kvarq_tpu_torch.engine import pallas_scan
         counters = {'K1': pallas_scan.cand_counts,
                     'S1': pallas_scan.score_candidates,
@@ -192,18 +195,27 @@ class Run:
         n = len(self.samples)
         traced = self.traffic['trace_samples']
         path = os.path.join(self.dir, 'trace.json')
+        collected = []
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for i in range(traced):
-                with record_function('perfbench.sample.s%d' % (i % n)):
-                    self._scan(i % n, 't%d' % i)
-                    torch.cuda.synchronize()
+                with profiling.recording():
+                    with record_function('perfbench.sample.s%d' % (i % n)):
+                        self._scan(i % n, 't%d' % i)
+                        torch.cuda.synchronize()
+                    collected.append(profiling.collect())
+        counts = {}
+        for c in collected:
+            for k, v in c['counts'].items():
+                counts[k] = counts.get(k, 0) + v / traced
         self.say(launches_per_sample={
             k: (c.launches - before[k]) / traced for k, c in counters.items()},
-            max_memory_allocated=self.memory_peak)
+            counts_per_sample=counts, max_memory_allocated=self.memory_peak)
         prof.export_chrome_trace(path)
         self.tr = trace.reduce(path)
         os.remove(path)
+        self.program = [program.place(c, self.tr['base_ns'])
+                        for c in collected]
 
     # --- the check --------------------------------------------------------------
 
@@ -214,8 +226,11 @@ class Run:
         if self.card:
             self.torch.cuda.empty_cache()
         hits = self.traffic['path'] == 'hits'
-        want = [check.Expected(p, self.config, self.group).result(hits)
-                for p in self.samples]
+        t0 = time.perf_counter()
+        device = 'cuda' if self.card else 'cpu'
+        want = [check.Expected(p, self.config, self.group, device)
+                .result(hits) for p in self.samples]
+        self.say(reference_s=time.perf_counter() - t0)
         total = dict.fromkeys(check.FIELDS, 0)
         failed = 0
         self.scantimes = {}
@@ -242,6 +257,7 @@ class Run:
                        'scantime_s': self.scantimes.get(out), 'rc': rc}
                       for k, out, a, b, rc in self.window_scans],
             'trace': self.tr,
+            'program': self.program,
         }
 
     def cleanup(self):
@@ -285,7 +301,7 @@ def execute(root, bench, cell_name, seed, seconds, traced, card=True,
         'device': device(run, traced),
     }
     if traced and run.tr is not None:
-        result['breakdown'] = breakdown(run.tr)
+        result['breakdown'] = breakdown(run.tr, run.program)
     result['checks'] = checks
     return result
 
@@ -303,8 +319,8 @@ def device(run, traced):
     return out
 
 
-def breakdown(tr):
+def breakdown(tr, placed=None):
     ops = sorted(trace.us_by_name(tr).items(), key=lambda x: -x[1])
-    gaps = sorted(trace.idle_gaps(tr), key=lambda x: -x[1])
+    gaps = sorted(trace.idle_gaps(tr, placed), key=lambda x: -x[1])
     return {'device_ops': [[n[:NAME_CHARS], us / 1e6] for n, us in ops[:10]],
             'idle_gaps': [[n, us / 1e6] for n, us in gaps[:10]]}

@@ -6,7 +6,7 @@ names the function it reads by; which cells report a metric is
 the run holds nothing to read.
 '''
 
-from perfbench.lib import trace
+from perfbench.lib import program, trace
 
 
 def reads_per_s(record):
@@ -69,3 +69,47 @@ def device_idle_pct(record):
     if tr is None or not trace.window_us(tr):
         return None
     return 100.0 * (1.0 - trace.busy_us(tr) / trace.window_us(tr))
+
+
+# --- the program's own spans and counters in the traced samples ------------
+
+
+def read_ms(record):
+    ''' the reader's time a traced sample: ``reader.next`` spans (one
+        native batch each) on the reader's thread '''
+    return program.layer_ms(record['program'], 'read_ms')
+
+
+def sieve_ms(record):
+    ''' the sieve's thread time a traced sample, summed over the
+        reader's C workers (counter ``reader.sieve_ns``) '''
+    return program.layer_ms(record['program'], 'sieve_ms')
+
+
+def inflate_ms(record):
+    ''' the decode threads' busy time a traced sample (counter
+        ``reader.inflate_ns``) '''
+    return program.layer_ms(record['program'], 'inflate_ms')
+
+
+def load_ms(record):
+    ''' the testsuites' load a traced sample: ``cli.load`` and
+        ``analyse.coverages`` '''
+    return program.layer_ms(record['program'], 'load_ms')
+
+
+def replay_ms(record):
+    ''' the hits' replay into coverage a traced sample
+        (``analyse.replay``, under ``-H``) '''
+    return program.layer_ms(record['program'], 'replay_ms')
+
+
+def write_ms(record):
+    ''' the result's encoding and JSON write a traced sample
+        (``cli.write``) '''
+    return program.layer_ms(record['program'], 'write_ms')
+
+
+def emit_ms(record):
+    ''' ``_emit`` a traced sample (``engine.emit``, under ``-H``) '''
+    return program.layer_ms(record['program'], 'emit_ms')

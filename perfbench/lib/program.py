@@ -10,8 +10,10 @@ events (an event's ``ts`` in us plus the file's
 :py:func:`place` puts a sample's spans on the trace's microseconds; the
 readings take the list of placed samples, and read None from a program
 without the recorder (no samples) or where no sample holds what they
-read.  The harness does not record the program yet: PERF.md §7 names the
-additions to ``harness.py`` and ``trace.py`` that would.
+read.  ``harness.Run.traced_samples`` records each traced sample, and a
+run's record holds them placed (``program``). :py:func:`span_ms` and
+:py:func:`count_ms` read any span or counter by its name: a metric on a
+span or counter that no entry below names needs a reader file alone.
 '''
 
 # the threads of a scan: the one calling cli.main, the scan's, the reader's

@@ -2,10 +2,14 @@
 The reduction of a ``torch.profiler`` Chrome trace to what the per-layer
 metrics read: the benchmark's own spans (``perfbench.*`` annotations of
 the thread that drives the samples) and the device's activity (kernels,
-copies, fills), both on the trace's clock in microseconds.
+copies, fills), both on the trace's clock in microseconds, and the
+clock's origin, which puts the program's spans on it
+(:py:func:`perfbench.lib.program.place`).
 '''
 
 import json
+
+from perfbench.lib import program
 
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 SPAN_PREFIX = 'perfbench.'
@@ -13,9 +17,11 @@ SPAN_PREFIX = 'perfbench.'
 
 def reduce(path):
     ''' ``{'spans': [(name, start, end)], 'device': [(name, cat, start,
-        end)]}`` from the trace file ``path`` '''
+        end)], 'base_ns': baseTimeNanoseconds}`` from the trace file
+        ``path`` '''
     with open(path) as fd:
-        events = json.load(fd).get('traceEvents', [])
+        data = json.load(fd)
+    events = data.get('traceEvents', [])
     spans, device = [], []
     for e in events:
         if e.get('ph') != 'X' or 'dur' not in e:
@@ -29,7 +35,8 @@ def reduce(path):
             spans.append((name, start, end))
     spans.sort(key=lambda s: s[1])
     device.sort(key=lambda d: d[2])
-    return {'spans': spans, 'device': device}
+    return {'spans': spans, 'device': device,
+            'base_ns': int(data.get('baseTimeNanoseconds', 0))}
 
 
 def window(tr):
@@ -84,11 +91,13 @@ def us_by_name(tr, cats=DEVICE_CATS):
     return out
 
 
-def idle_gaps(tr):
+def idle_gaps(tr, placed=None):
     ''' [(label, microseconds)] of the gaps in the device's activity
         inside the window, cut where a sample's span starts or ends and
-        labelled by the span that held the host: a sample's scan, or
-        between samples '''
+        labelled by the span that held the host: a sample's scan, with
+        what held the program at the gap's middle where the program's
+        spans (``placed``) say (``in sample.s0 / engine.wait /
+        reader.next``), or between samples '''
     win = window(tr)
     if win is None:
         return []
@@ -108,6 +117,9 @@ def idle_gaps(tr):
         for name, ss, se in spans:
             if ss <= mid < se:
                 label = 'in ' + name[len(SPAN_PREFIX):]
+                inner = program.label_at(placed, mid)
+                if inner:
+                    label += ' / ' + inner
                 break
         out.append((label, e - s))
     return out

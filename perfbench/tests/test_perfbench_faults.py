@@ -5,7 +5,9 @@ test holds), the rest of a run driven as on the card. One fault each that
 a cell can have: a scan that returns its state unchanged (the previous
 sample's result), half of each batch left out, and an answer altered
 where it is produced. The cells run on one card, so no exchange between
-cards can be left out.
+cards can be left out. Besides today's cells, ``mtbc_se101`` at four
+mismatches (``-e 4``: a seed of 5 bases, no sieve, the brute-force
+reference), the deployment a later cell scans.
 '''
 
 import json
@@ -22,11 +24,15 @@ ROOT = spec.ROOT
 BENCH = spec.load()
 
 
-def run(cell, tmp_path, monkeypatch, count=20000):
+def run(cell, tmp_path, monkeypatch, count=20000, errors=None):
     monkeypatch.setenv('TMPDIR', str(tmp_path))
     monkeypatch.setattr('tempfile.tempdir', None)
     config = spec.config(spec.cell(BENCH, cell)['config'])
     config['reads']['count'] = count
+    if errors is not None:
+        # the CPU program screens every read without the sieve: fewer
+        config['scan']['errors'] = errors
+        config['reads']['count'] = count // 2
     return harness.execute(ROOT, BENCH, cell, 2 ** 31 + 11, 0.1, False,
                            card=False, config=config)
 
@@ -78,11 +84,14 @@ def altered(monkeypatch):
 
 CELLS = [w['name'] for w in BENCH['workloads']
          if w['config'] == 'mtbc_se101']
+# (cell, maxerrors of the scan: the configuration's where None)
+CASES = [pytest.param(c, None, id=c) for c in CELLS] + [
+    pytest.param('mtbc_se101.cov', 4, id='mtbc_se101.cov-e4')]
 
 
-@pytest.mark.parametrize('cell', CELLS)
-def test_sound_run_is_correct(cell, tmp_path, monkeypatch):
-    result = run(cell, tmp_path, monkeypatch)
+@pytest.mark.parametrize('cell,errors', CASES)
+def test_sound_run_is_correct(cell, errors, tmp_path, monkeypatch):
+    result = run(cell, tmp_path, monkeypatch, errors=errors)
     assert result['correct'], result['checks']
     # one warm-up scan, then every sample at least once in the window
     samples = spec.traffic(spec.cell(BENCH, cell)['traffic'])['samples']
@@ -93,10 +102,11 @@ def test_sound_run_is_correct(cell, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize('fault', [stale, half_batches, altered],
                          ids=['state-unchanged', 'half-batch', 'altered'])
-@pytest.mark.parametrize('cell', CELLS)
-def test_broken_path_is_not_correct(cell, fault, tmp_path, monkeypatch):
+@pytest.mark.parametrize('cell,errors', CASES)
+def test_broken_path_is_not_correct(cell, errors, fault, tmp_path,
+                                    monkeypatch):
     fault(monkeypatch)
-    result = run(cell, tmp_path, monkeypatch)
+    result = run(cell, tmp_path, monkeypatch, errors=errors)
     assert not result['correct']
     assert result['failed'] > 0
     assert any(c['value'] > c['limit'] for c in result['checks'].values())

@@ -29,10 +29,14 @@ EVENTS = [
 ]
 
 
+BASE = 1_000_000_000   # the trace's baseTimeNanoseconds
+
+
 @pytest.fixture
 def canned(tmp_path):
     path = tmp_path / 'trace.json'
-    path.write_text(json.dumps({'traceEvents': EVENTS}))
+    path.write_text(json.dumps({'traceEvents': EVENTS,
+                                'baseTimeNanoseconds': BASE}))
     return trace.reduce(str(path))
 
 
@@ -45,10 +49,12 @@ def record(tr=None):
                   {'sample': 1, 'wall_s': 0.7, 'scantime_s': 0.5, 'rc': 0},
                   {'sample': 0, 'wall_s': 0.6, 'scantime_s': None, 'rc': 1}],
         'trace': tr,
+        'program': None,
     }
 
 
 def test_trace_reduction(canned):
+    assert canned['base_ns'] == BASE
     assert trace.window(canned) == (10.0, 220.0)
     assert trace.samples(canned) == 2
     # 20..35, 140..160, 200..220 (the last kernel clipped at the window)
@@ -77,15 +83,20 @@ def test_window_readers(name, want):
     assert spec.reader(name)(record()) == pytest.approx(want)
 
 
-@pytest.mark.parametrize('cell,suffix,other', [
-    ('mtbc_se101.cov', '.cov', '.hit'),
-    ('mtbc_pe150_gz.cov', '.cov', '.hit'),
-    ('mtbc_se101.hits', '.hit', '.cov'),
+SHARED = {'cli_ms', 'engine_ms', 'kernel_ms', 'device_idle_pct', 'read_ms',
+          'sieve_ms', 'load_ms'}
+
+
+@pytest.mark.parametrize('cell,suffix,other,own', [
+    ('mtbc_se101.cov', '.cov', '.hit', set()),
+    ('mtbc_pe150_gz.cov', '.cov', '.hit', {'inflate_ms'}),
+    ('mtbc_se101.hits', '.hit', '.cov', {'replay_ms', 'write_ms', 'emit_ms'}),
 ])
-def test_cells_report_only_their_paths_layer_metrics(cell, suffix, other):
+def test_cells_report_only_their_paths_layer_metrics(cell, suffix, other,
+                                                     own):
     # BENCHMARK.json's workloads decide; the readers do not look
     names = [m['name'] for m in spec.metrics(spec.load(), cell, True)]
-    assert {'cli_ms', 'engine_ms', 'kernel_ms', 'device_idle_pct'} == \
+    assert SHARED | own == \
         {n[:-len(suffix)] for n in names if n.endswith(suffix)}
     assert not [n for n in names if n.endswith(other)]
 

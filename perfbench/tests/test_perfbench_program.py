@@ -2,14 +2,17 @@
 The program's spans and counters on the trace's clock
 (``perfbench/lib/program.py``): placement, each layer's reading on two
 canned samples, the labels of what held the host, and nothing read from
-a program without the recorder.
+a program without the recorder; each metric's reader on them, a reader
+of a span no entry names, and the idle gaps of a canned trace labelled
+by the program's spans.
 '''
 
+import importlib.util
 import json
 
 import pytest
 
-from perfbench.lib import program
+from perfbench.lib import harness, program, spec, trace
 
 BASE = 1_000_000_000   # baseTimeNanoseconds of the canned trace
 W, M, R = program.WORKER, program.MAIN, program.READER
@@ -134,3 +137,91 @@ def test_spans_line_up_with_a_real_trace(tmp_path):
     mid = float(inner['ts']) + float(inner['dur']) / 2
     assert program.label_at([placed], mid) == 'cli.write'
     assert s - 1e3 < float(inner['ts']) and mid < e + 1e3
+
+
+# --- the readings as the harness records them: the metrics' readers ----------
+
+READERS = {
+    'read_ms.cov': (40 + 18) / 2, 'read_ms.hit': (40 + 18) / 2,
+    'sieve_ms.cov': (30 + 50) / 2, 'sieve_ms.hit': (30 + 50) / 2,
+    'inflate_ms.cov': 0.0,
+    'load_ms.cov': (10 + 2 + 4) / 2, 'load_ms.hit': (10 + 2 + 4) / 2,
+    'replay_ms.hit': 10 / 2, 'write_ms.hit': (15 + 5) / 2,
+    'emit_ms.hit': 10 / 2,
+}
+
+
+def test_every_program_metric_has_a_canned_reading():
+    # engine_ms reads the result's info.scantime, not the recording
+    names = {m['name'] for m in spec.load()['per_layer']
+             if m['source'] in ('program_span', 'program_counter')
+             and not m['name'].startswith('engine_ms.')}
+    assert names == set(READERS)
+
+
+@pytest.mark.parametrize('name,want_us', sorted(READERS.items()))
+def test_metric_readers_on_the_recorded_samples(samples, name, want_us):
+    got = spec.reader(name)({'program': samples})
+    assert got == pytest.approx(want_us / 1e3)
+
+
+@pytest.mark.parametrize('name', sorted(READERS))
+def test_metric_readers_read_nothing_unrecorded(samples, name):
+    read = spec.reader(name)
+    assert read({'program': None}) is None
+    assert read({'program': []}) is None
+    # no sample holds the span or counter the metric reads
+    key = name.split('.')[0]
+    gone = set(program.SPANS.get(key, ()))
+    for p in samples:
+        p['spans'] = [s for s in p['spans'] if s[0] not in gone]
+        p['counts'].pop(program.COUNTERS.get(key), None)
+    assert read({'program': samples}) is None
+
+
+def test_a_reader_of_a_span_no_entry_names(samples, tmp_path):
+    ''' a later metric on a new span is a reader file alone '''
+    assert not any('engine.match' in v for v in program.SPANS.values())
+    path = tmp_path / 'match_ms.hit.py'
+    path.write_text('from perfbench.lib import program\n\n\n'
+                    'def read(record):\n'
+                    "    return program.span_ms(record['program'],\n"
+                    "                           ('engine.match',))\n")
+    loader = importlib.util.spec_from_file_location('match_ms_hit', path)
+    module = importlib.util.module_from_spec(loader)
+    loader.loader.exec_module(module)
+    assert module.read({'program': samples}) == pytest.approx((10 + 6) / 2e3)
+    assert module.read({'program': None}) is None
+
+
+@pytest.fixture
+def canned(tmp_path):
+    ''' a trace of the two samples: s0 over 0..130 us, s1 over 195..270,
+        one kernel inside engine.match (62..68) '''
+    events = [
+        {'ph': 'X', 'cat': 'user_annotation', 'name': 'perfbench.sample.s0',
+         'ts': 0, 'dur': 130},
+        {'ph': 'X', 'cat': 'user_annotation', 'name': 'perfbench.sample.s1',
+         'ts': 195, 'dur': 75},
+        {'ph': 'X', 'cat': 'kernel', 'name': 'cand_screen_kernel', 'ts': 62,
+         'dur': 6},
+    ]
+    path = tmp_path / 'trace.json'
+    path.write_text(json.dumps({'traceEvents': events,
+                                'baseTimeNanoseconds': BASE}))
+    return trace.reduce(str(path))
+
+
+def test_idle_gaps_carry_the_programs_span(canned):
+    samples = [program.place(c, canned['base_ns']) for c in COLLECTED]
+    assert sorted(trace.idle_gaps(canned, samples)) == sorted([
+        ('in sample.s0 / engine.wait / reader.next', 62.0),  # mid 31
+        ('in sample.s0 / cli.scan', 62.0),                   # mid 99
+        ('between samples', 65.0),
+        ('in sample.s1 / engine.wait', 75.0),                # mid 232.5
+    ])
+    # without the program's spans, the sample's alone
+    assert {g for g, _ in trace.idle_gaps(canned)} == {
+        'in sample.s0', 'between samples', 'in sample.s1'}
+    gaps = harness.breakdown(canned, samples)['idle_gaps']
+    assert gaps[0] == ['in sample.s1 / engine.wait', pytest.approx(75e-6)]

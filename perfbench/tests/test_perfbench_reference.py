@@ -113,12 +113,15 @@ def test_coverage_and_alternates_on_both_strands(tmp_path):
     assert cov.serialize() == '-'.join(['2'] * 30) + ' 5[%s%s]' % (alt, alt)
 
 
-def test_control_fails_where_the_program_passes(tmp_path):
+@pytest.mark.parametrize('errors', [2, 4])
+def test_control_fails_where_the_program_passes(tmp_path, errors):
     ''' the control (one mismatch fewer allowed) differs from the reference
-        on a generated sample '''
+        on a generated sample: at the configuration's two mismatches (the
+        seeded matcher), and at four (the brute-force one) '''
     group = MTBC.Group(ROOT, 25)
     config = spec.config('mtbc_se101')
     config['reads']['count'] = 60000
+    config['scan']['errors'] = errors
     genome = generator.genome_codes(os.path.join(ROOT, MTBC.GENOME))
     paths, _ = generator.make_sample(genome, group, config, 12, 0,
                                      str(tmp_path))
@@ -126,7 +129,7 @@ def test_control_fails_where_the_program_passes(tmp_path):
     for hits in (False, True):
         want = exp.result(hits)
         assert not any(check.compare(want, want).values())
-        ctl = check.compare(exp.result(hits, errors=1), want)
+        ctl = check.compare(exp.result(hits, errors=errors - 1), want)
         assert ctl['coverages'] > 0 and ctl['stats'] > 0
         if hits:
             assert ctl['hits'] > 0
