@@ -772,6 +772,13 @@ def compact(mask, size=None):
     return idx[:size], count
 
 
+def gathers(gather_k, B):
+    ''' whether :py:func:`scan_step_banked` runs a step of ``B`` reads in
+        gathered mode (screen, compaction, scoring of the candidates)
+        rather than dense mode '''
+    return bool(gather_k) and gather_k < B
+
+
 def scan_step_banked(codes, rl, state, maxerrors, minoverlap, gather_k=768,
                      rows=None):
     '''
@@ -790,8 +797,7 @@ def scan_step_banked(codes, rl, state, maxerrors, minoverlap, gather_k=768,
     flag scores nothing).  On a CUDA tensor nothing here reads a device
     value on the host, and nothing of size ``[B, Qp]`` is allocated.
     '''
-    B = codes.shape[0]
-    if not gather_k or gather_k >= B:
+    if not gathers(gather_k, codes.shape[0]):
         count = torch.zeros((), dtype=torch.int32, device=codes.device)
         return (*score_candidates(codes, rl, state, maxerrors, minoverlap,
                                   rows=rows), count)

@@ -15,6 +15,7 @@ import os
 import numpy as np
 import torch
 
+from kvarq_tpu_torch import profiling
 from kvarq_tpu_torch.engine import encode, pallas_scan
 from kvarq_tpu_torch.log import lo
 
@@ -114,7 +115,17 @@ class TensorScanner:
         ``gather_k`` follows the JAX package's adaptive policy: start at
         768 (``$KVARQ_GATHER_K``), grow over :py:data:`GATHER_BUCKETS`
         when the observed candidate count overflows, terminal dense mode
-        past the last bucket. '''
+        past the last bucket.
+
+        Inside :py:func:`kvarq_tpu_torch.profiling.recording` a step
+        records the span ``engine.copy`` (the copies of its codes and
+        lengths to the device) and the counters ``scan.h2d_bytes`` (their
+        bytes), ``scan.screened`` (reads with a length above 0 that the
+        screen takes, gathered mode), ``scan.scored`` (rows the exact
+        scoring takes: the step's rows in dense mode, the compacted
+        candidates in gathered mode, summed on the device and read with
+        the flush's transfer) and ``scan.adapted`` (changes of
+        ``gather_k``, the switch to dense mode included). '''
 
     FLUSH_STEPS = 64
     GATHER_BUCKETS = (768, 1536, 3072, 6144)
@@ -171,6 +182,7 @@ class TensorScanner:
             return False
         lo.info('gather_k %d -> %s (observed %d candidates/step)'
                 % (self.gather_k, new if new else 'dense', candmax))
+        profiling.count('scan.adapted', 1)
         self.gather_k = new
         for lp in list(self._ctx):
             self._flush(lp, adapt=False)
@@ -178,19 +190,34 @@ class TensorScanner:
 
     def _step(self, Lpad, codes, rl):
         ctx = self._ctx[Lpad]
-        codes = torch.from_numpy(np.ascontiguousarray(codes)).to(
-            self.device, non_blocking=True)
-        rl = torch.from_numpy(np.ascontiguousarray(rl, np.int32)).to(
-            self.device, non_blocking=True)
+        codes = np.ascontiguousarray(codes)
+        rl = np.ascontiguousarray(rl, np.int32)
+        with profiling.span('engine.copy'):
+            codes_d = torch.from_numpy(codes).to(self.device,
+                                                 non_blocking=True)
+            rl_d = torch.from_numpy(rl).to(self.device, non_blocking=True)
         bc, sh, sbh, count = pallas_scan.scan_step_banked(
-            codes, rl, ctx['state'], self.maxerrors, self.minoverlap,
+            codes_d, rl_d, ctx['state'], self.maxerrors, self.minoverlap,
             self.gather_k, ctx['rows'])
+        # the rows scored in gathered mode stay on the device until the
+        # flush; None while not recording
+        scored = None
+        if profiling.is_recording():
+            profiling.count('scan.h2d_bytes', codes.nbytes + rl.nbytes)
+            if pallas_scan.gathers(self.gather_k, len(rl)):
+                profiling.count('scan.screened', int(np.count_nonzero(rl)))
+                scored = count.long()
+            else:
+                profiling.count('scan.scored', len(rl))
         if ctx['acc'] is None:
-            ctx['acc'] = [bc, sh, sbh, count]
+            ctx['acc'] = [bc, sh, sbh, count, scored]
         else:
-            for a, d in zip(ctx['acc'], (bc, sh, sbh)):
+            acc = ctx['acc']
+            for a, d in zip(acc, (bc, sh, sbh)):
                 a += d
-            ctx['acc'][3] = torch.maximum(ctx['acc'][3], count)
+            acc[3] = torch.maximum(acc[3], count)
+            if scored is not None:
+                acc[4] = scored if acc[4] is None else acc[4] + scored
         ctx['steps'] += 1
         if self._gather_auto and self.gather_k and not ctx['peeked']:
             # a hit-dense input overflows from its first step: adapt now
@@ -207,10 +234,16 @@ class TensorScanner:
         ctx = self._ctx[Lpad]
         if ctx['acc'] is None:
             return
-        bc, sh, sbh, cm = ctx['acc']
-        # one transfer: the accumulators and the candidate maximum
-        flat = torch.cat([bc.flatten(), sh, sbh, cm.view(1).long()]) \
-            .cpu().numpy()
+        bc, sh, sbh, cm, scored = ctx['acc']
+        # one transfer: the accumulators, the candidate maximum and, while
+        # recording, the rows scored in gathered mode
+        parts = [bc.flatten(), sh, sbh, cm.view(1).long()]
+        if scored is not None:
+            parts.append(scored.view(1))
+        flat = torch.cat(parts).cpu().numpy()
+        if scored is not None:
+            profiling.count('scan.scored', int(flat[-1]))
+            flat = flat[:-1]
         host = self.basecounts.setdefault(
             Lpad, np.zeros((encode.NBASE, ctx['bank'].G), dtype=np.int64))
         nbc = bc.numel()

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from kvarq_tpu_torch import engine as tengine
-from kvarq_tpu_torch import parallel
+from kvarq_tpu_torch import parallel, profiling
 from kvarq_tpu_torch.engine import encode, match_pallas, reader
 from kvarq_tpu_torch.engine import pallas_scan as tps
 from kvarq_tpu_torch.engine import tensor_scan as tts
@@ -501,6 +501,39 @@ def test_scan_step_never_waits_on_the_host(cuda):
     np.testing.assert_array_equal(out[0][1], out[1][1])
     np.testing.assert_array_equal(out[0][2], out[1][2])
     assert out[0][1].sum() > 0
+
+
+def test_recorded_scan_steps_never_wait_on_the_host(cuda):
+    ''' the sparse path's counters and span cost no host wait: 8 gathered
+        scanner steps under sync debug mode 'error' while recording, then
+        the flush, outside it, reads the rows scored; counters and
+        coverage equal the CPU scanner's '''
+    seqs, codes, rl, bank = case(42, 4, B=96, minoverlap=10)
+    batches = [reader.RecordBatch(codes[k::8], rl[k::8], None, None)
+               for k in range(8)]
+    out = []
+    for dev in (cuda, 'cpu'):
+        sc = tts.TensorScanner(seqs, 1, 10, dev)
+        sc.gather_k, sc._gather_auto = 4, False
+        sc._context(codes.shape[1])      # the bank's upload may wait
+        with profiling.recording():
+            if dev == cuda:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode('error')
+            try:
+                for batch in batches:
+                    sc.scan_batch(batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            cov = sc.coverages()
+            rec = profiling.collect()
+        out.append((cov, rec['counts']))
+        assert len([s for s in rec['spans'] if s[0] == 'engine.copy']) == 8
+    for w, g in zip(out[1][0], out[0][0]):
+        np.testing.assert_array_equal(w, g)
+    assert out[0][1] == out[1][1]
+    assert out[0][1]['scan.screened'] == np.count_nonzero(rl)
+    assert 0 < out[0][1]['scan.scored'] <= len(rl)
 
 
 def _sorted(tri):
