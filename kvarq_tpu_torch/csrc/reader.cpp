@@ -341,7 +341,9 @@ void bgzf_worker_main(BgzfDecode* bz) {
 #endif
 
 // one record-aligned span of decompressed data plus its processed outputs
-struct CandRec { int32_t rl; int64_t filepos; size_t raw_off; };
+// (a candidate's codes, and its raw bytes where the reader delivers them,
+// start at `off` in the item's `codes` and `raws`)
+struct CandRec { int32_t rl; int64_t filepos; size_t off; };
 struct WorkItem {
     uint64_t seq = 0;
     std::vector<uint8_t> data;  // complete records only
@@ -354,7 +356,9 @@ struct WorkItem {
                                 // splitter's scan, reused by the parse)
     int64_t offset = 0;         // global decompressed offset of data[0]
     std::vector<CandRec> cands;
-    std::vector<uint8_t> raws;  // concatenated trimmed candidate bytes
+    std::vector<uint8_t> codes; // concatenated candidate codes (code_of)
+    std::vector<uint8_t> raws;  // concatenated trimmed candidate bytes,
+                                // kept only where raw rows are delivered
     int64_t rls[MAX_READLENGTH] = {};
     int64_t rls_longest = -1;
     int64_t nrecords = 0;
@@ -470,15 +474,28 @@ struct Reader {
     WorkItem* cur = nullptr;        // partially drained item
     size_t cur_i = 0;
 
+    // the batch kvq_next is assembling: its candidates, as runs of
+    // consecutive candidates of one item, taken first and written as rows
+    // once the batch's longest read is known; the items drained meanwhile
+    // (freed after the write), and the one-thread reader's own item
+    struct Taken { const WorkItem* it; size_t begin, end; };
+    std::vector<Taken> taken;
+    std::vector<WorkItem*> spent;
+    WorkItem inl;
+    // deliver raw rows beside the codes (kvq_open)
+    bool want_raw = true;
+
     // reads kvq_next delivered: those that passed the sieve
     int64_t survivors = 0;
 
     // the profile (kvq_set_prof, read by kvq_prof), in ticks of
     // prof_now: the sieve's, summed over the threads that parse and
-    // merged by the thread that calls kvq_next, and the decode threads'
-    // busy time; the clocks at kvq_set_prof convert them to nanoseconds
+    // merged by the thread that calls kvq_next, that thread's wait for
+    // the workers, and the decode threads' busy time; the clocks at
+    // kvq_set_prof convert them to nanoseconds
     bool prof = false;
     uint64_t prof_sieve = 0;
+    uint64_t prof_wait = 0;     // the consumer's, blocked on out_cv
     std::atomic<uint64_t> prof_inflate{0};
     uint64_t prof_tick0 = 0;
     int64_t prof_ns0 = 0;
@@ -1740,6 +1757,84 @@ int handle_record(const Reader* r, const uint8_t* b, size_t p,
     return 1;
 }
 
+// the row width of a batch whose longest read is n bytes: the widths of
+// reader._round_up, which the native reader takes from here alone
+// (kvq_next's *batch_lpad, kvq_pending_width)
+inline long round_up(long n) {
+    static const long widths[] = {64, 128, 192, 256, 384, 512, 768, 1024};
+    for (long w : widths)
+        if (n <= w) return w;
+    return (n + 127) / 128 * 128;
+}
+
+// dst[i] = code_of[src[i]]: A 0, C 1, G 2, T 3, N 4, any other byte
+// CODE_READ_JUNK; 32 bytes a step on AVX2
+inline void translate(const uint8_t* code_of, const uint8_t* src,
+                      size_t n, uint8_t* dst) {
+#if defined(__AVX2__)
+    if (n >= 32) {
+        // the low nibbles of A C T G N (1 3 4 7 E) differ: a shuffle by
+        // the nibble gives the code, another the one byte with that
+        // nibble that takes it
+        constexpr char J = CODE_READ_JUNK;
+        const __m256i code_lut = _mm256_setr_epi8(
+            J, 0, J, 1, 3, J, J, 2, J, J, J, J, J, J, 4, J,
+            J, 0, J, 1, 3, J, J, 2, J, J, J, J, J, J, 4, J);
+        const __m256i base_lut = _mm256_setr_epi8(
+            0, 'A', 0, 'C', 'T', 0, 0, 'G', 0, 0, 0, 0, 0, 0, 'N', 0,
+            0, 'A', 0, 'C', 'T', 0, 0, 'G', 0, 0, 0, 0, 0, 0, 'N', 0);
+        const __m256i low = _mm256_set1_epi8(0x0f);
+        const __m256i junk = _mm256_set1_epi8(J);
+        auto step = [&](size_t at) {
+            const __m256i x =
+                _mm256_loadu_si256((const __m256i*)(src + at));
+            const __m256i nib = _mm256_and_si256(x, low);
+            const __m256i base = _mm256_cmpeq_epi8(
+                x, _mm256_shuffle_epi8(base_lut, nib));
+            _mm256_storeu_si256((__m256i*)(dst + at), _mm256_blendv_epi8(
+                junk, _mm256_shuffle_epi8(code_lut, nib), base));
+        };
+        size_t i = 0;
+        for (; i + 32 <= n; i += 32) step(i);
+        // the tail: the last 32 bytes, some of them a second time
+        if (i < n) step(n - 32);
+        return;
+    }
+#endif
+    for (size_t i = 0; i < n; i++) dst[i] = code_of[src[i]];
+}
+
+// take a read that passed trimming and the sieve into `it`: its codes,
+// and its bytes where the reader delivers raw rows
+void append_cand(const Reader* r, WorkItem* it, const uint8_t* src,
+                 int rl, int64_t filepos) {
+    const size_t off = it->codes.size();
+    it->cands.push_back(CandRec{rl, filepos, off});
+    it->codes.resize(off + (size_t)rl);
+    translate(r->code_of, src, (size_t)rl, it->codes.data() + off);
+    if (r->want_raw) it->raws.insert(it->raws.end(), src, src + rl);
+}
+
+// the batch's taken candidates as consecutive rows of `lpad` bytes: the
+// codes padded with CODE_READ_JUNK and, where raw rows are delivered,
+// the bytes padded with 0
+void write_rows(const Reader* r, long lpad, uint8_t* codes, uint8_t* raw) {
+    if (!r->want_raw) raw = nullptr;
+    for (const Reader::Taken& t : r->taken) {
+        for (size_t i = t.begin; i < t.end; i++) {
+            const CandRec& c = t.it->cands[i];
+            std::memcpy(codes, t.it->codes.data() + c.off, (size_t)c.rl);
+            std::memset(codes + c.rl, CODE_READ_JUNK, (size_t)(lpad - c.rl));
+            codes += lpad;
+            if (raw) {
+                std::memcpy(raw, t.it->raws.data() + c.off, (size_t)c.rl);
+                std::memset(raw + c.rl, 0, (size_t)(lpad - c.rl));
+                raw += lpad;
+            }
+        }
+    }
+}
+
 // ---- worker-thread machinery ------------------------------------------
 
 // SIMD newline-position scan of base[from, to), positions emitted
@@ -1937,7 +2032,8 @@ WorkItem* pull_work(Reader* r) {
     }
 }
 
-// parse + trim + sieve every record of the item into its local outputs
+// parse + trim + sieve every record of the item into its local outputs,
+// the survivors' codes translated
 void process_item(Reader* r, WorkItem* it) {
     const uint8_t* b = it->ext ? it->ext : it->data.data();
     const size_t len = it->ext ? it->ext_len : it->data.size();
@@ -1967,16 +2063,16 @@ void process_item(Reader* r, WorkItem* it) {
             return;
         }
         it->nrecords++;
-        if (ret > 0) {
-            it->cands.push_back(CandRec{
-                rl, it->offset + (int64_t)bs, it->raws.size()});
-            it->raws.insert(it->raws.end(), b + bs, b + bs + rl);
-        }
+        if (ret > 0) append_cand(r, it, b + bs, rl, it->offset + (int64_t)bs);
         p = nls[3] + 1;
     }
-    // the positions are dead now; free them before the item parks in
-    // the ordered completion queue
+    // the positions and the span are dead now (the survivors' codes and
+    // bytes are copies); free them before the item parks in the ordered
+    // completion queue
     std::vector<int32_t>().swap(it->nl);
+    std::vector<uint8_t>().swap(it->data);
+    it->ext = nullptr;
+    it->ext_len = 0;
 }
 
 void worker_main(Reader* r) {
@@ -1992,10 +2088,10 @@ void worker_main(Reader* r) {
     }
 }
 
-// threaded kvq_next: drain processed items in sequence order
-long next_threaded(Reader* r, long cap, long lmax, uint8_t* raw,
-                   uint8_t* codes, int32_t* rl_out, int64_t* filepos,
-                   int32_t* batch_maxrl) {
+// threaded kvq_next: take the candidates of the processed items in
+// sequence order (kvq_next writes their rows)
+long take_threaded(Reader* r, long cap, long lmax, int32_t* rl_out,
+                   int64_t* filepos, int* batch_maxrl) {
     long out = 0;
     int maxrl = 0;
     int64_t consumed = 0;
@@ -2022,7 +2118,9 @@ long next_threaded(Reader* r, long cap, long lmax, uint8_t* raw,
                     *batch_maxrl = maxrl;
                     return out;   // true EOF
                 }
+                const uint64_t t0 = r->prof ? prof_now() : 0;
                 r->out_cv.wait(l);
+                if (t0) r->prof_wait += prof_now() - t0;
             }
             // merge the item's stats in record order
             r->records_parsed = r->records_parsed + r->cur->nrecords;
@@ -2034,31 +2132,40 @@ long next_threaded(Reader* r, long cap, long lmax, uint8_t* raw,
             consumed += r->cur->nrecords;
         }
         WorkItem* it = r->cur;
+        const size_t begin = r->cur_i;
+        bool too_long = false;
         while (out < cap && r->cur_i < it->cands.size()) {
             const CandRec& c = it->cands[r->cur_i];
-            if (c.rl > lmax) {
-                // stride too small: deliver what is packed so far; the
-                // caller grows its buffers (kvq_pending_rl) and calls
-                // again -- the candidate is not consumed, and its
-                // stats were already merged with its work item
-                r->pending_rl = c.rl;
-                *batch_maxrl = maxrl;
-                return out > 0 ? out : -2;
+            if (round_up(c.rl) > lmax) {
+                too_long = true;
+                break;
             }
-            uint8_t* rrow = raw + out * lmax;
-            uint8_t* crow = codes + out * lmax;
-            std::memcpy(rrow, it->raws.data() + c.raw_off, (size_t)c.rl);
-            for (int i = 0; i < c.rl; i++) crow[i] = r->code_of[rrow[i]];
             rl_out[out] = c.rl;
             filepos[out] = c.filepos;
             if (c.rl > maxrl) maxrl = c.rl;
             out++;
             r->cur_i++;
         }
+        if (r->cur_i > begin)
+            r->taken.push_back(Reader::Taken{it, begin, r->cur_i});
+        if (too_long) {
+            // rows too narrow: deliver what is taken so far; the caller
+            // grows its rows (kvq_pending_width) and calls again -- the
+            // candidate is not consumed, and its stats were already
+            // merged with its work item
+            r->pending_rl = it->cands[r->cur_i].rl;
+            *batch_maxrl = maxrl;
+            return out > 0 ? out : -2;
+        }
         if (r->cur_i >= it->cands.size()) {
             bool had_error = it->has_error;
             if (had_error) r->error = it->error;
-            delete it;
+            // an item with rows in this batch is freed once they are
+            // written, any other at once
+            if (!r->taken.empty() && r->taken.back().it == it)
+                r->spent.push_back(it);
+            else
+                delete it;
             r->cur = nullptr;
             r->next_consume++;
             if (had_error) return -1;
@@ -2081,11 +2188,13 @@ extern "C" {
 #endif
 const char* kvq_src_hash(void) { return KVARQ_SRC_HASH; }
 
+// `raw`: kvq_next delivers raw rows beside the codes (0: codes alone)
 Reader* kvq_open(const char** fnames, int nfiles, int amin,
-                 int minreadlength, int nthreads, long parse_cap) {
+                 int minreadlength, int nthreads, long parse_cap, int raw) {
     Reader* r = new Reader();
     r->amin = amin;
     r->minreadlength = minreadlength;
+    r->want_raw = raw != 0;
     for (int i = 0; i < nfiles; i++) {
         Stream s;
         s.fname = fnames[i];
@@ -2277,9 +2386,11 @@ void kvq_set_sieve(Reader* r, const int32_t* start, const int32_t* gpos,
     }
 }
 
-// read length behind the last -2 return from kvq_next (see there)
-long kvq_pending_rl(Reader* r) {
-    return r->pending_rl;
+// the row width that the read behind the last -2 return from kvq_next
+// needs (see there): the rule of round_up, which this file alone holds
+// for the native reader
+long kvq_pending_width(Reader* r) {
+    return round_up(r->pending_rl);
 }
 
 void kvq_stats(Reader* r, int64_t* records_parsed, int64_t* parsed,
@@ -2307,12 +2418,13 @@ void kvq_set_prof(Reader* r) {
     for (auto& s : r->streams) s.inflate_ticks = &r->prof_inflate;
 }
 
-// out[0..4]: nanoseconds in the sieve, summed over the threads that
+// out[0..5]: nanoseconds in the sieve, summed over the threads that
 // parse; nanoseconds the decode threads were busy; the records parsed;
 // the reads delivered (those that passed the sieve); the decompressed
 // bytes of following streams decoded before the consumer reached them
-// (open_ahead).  Both times are 0 unless the profile is on; call from
-// the thread that calls kvq_next.
+// (open_ahead); nanoseconds kvq_next waited for the workers' next item
+// in order (0 with one thread).  The three times are 0 unless the
+// profile is on; call from the thread that calls kvq_next.
 void kvq_prof(Reader* r, int64_t* out) {
     const uint64_t dt = prof_now() - r->prof_tick0;
     const double ns_per_tick =
@@ -2322,39 +2434,53 @@ void kvq_prof(Reader* r, int64_t* out) {
     out[2] = r->records_parsed;
     out[3] = r->survivors;
     out[4] = r->ahead_bytes.load();
+    out[5] = (int64_t)((double)r->prof_wait * ns_per_tick);
 }
 
-static long next_inline(Reader* r, long cap, long lmax, uint8_t* raw,
-                        uint8_t* codes, int32_t* rl_out, int64_t* filepos,
-                        int32_t* batch_maxrl);
+static long take_inline(Reader* r, long cap, long lmax, int32_t* rl_out,
+                        int64_t* filepos, int* batch_maxrl);
 
-// Fill up to `cap` records into the caller's buffers (stride = lmax bytes
-// per row for raw/codes).  Returns #records (0 = EOF), -1 = error, or
-// -2 = a read is longer than lmax: query kvq_pending_rl, grow the
-// buffers and call again (nothing was consumed or double-counted).
-long kvq_next(Reader* r, long cap, long lmax, uint8_t* raw, uint8_t* codes,
-              int32_t* rl_out, int64_t* filepos, int32_t* batch_maxrl) {
+// Take up to `cap` reads and write them as rows of *batch_lpad bytes
+// (round_up of the batch's longest read), one after another
+// from `codes` (padded with CODE_READ_JUNK) and, where the reader was
+// opened with raw rows, from `raw` (padded with 0); each holds `cap`
+// rows of `lmax` bytes.  Returns #reads (0 = EOF), -1 = error, or -2 =
+// a read needs rows wider than lmax: query kvq_pending_width, grow the
+// rows and call again (nothing was consumed or double-counted).
+long kvq_next(Reader* r, long cap, long lmax, uint8_t* codes, uint8_t* raw,
+              int32_t* rl_out, int64_t* filepos, int32_t* batch_lpad) {
+    int maxrl = 0;
     long n;
     if (r->nthreads > 1) {
         if (r->workers.empty() && !r->split_eof && !r->split_failed)
             for (int i = 0; i < r->nthreads; i++)
                 r->workers.emplace_back(worker_main, r);
-        n = next_threaded(r, cap, lmax, raw, codes, rl_out, filepos,
-                          batch_maxrl);
+        n = take_threaded(r, cap, lmax, rl_out, filepos, &maxrl);
     } else {
-        n = next_inline(r, cap, lmax, raw, codes, rl_out, filepos,
-                        batch_maxrl);
+        n = take_inline(r, cap, lmax, rl_out, filepos, &maxrl);
     }
-    if (n > 0) r->survivors += n;
+    *batch_lpad = 0;
+    if (n > 0) {
+        r->survivors += n;
+        *batch_lpad = (int32_t)round_up(maxrl);
+        write_rows(r, *batch_lpad, codes, raw);
+    }
+    r->taken.clear();
+    for (WorkItem* it : r->spent) delete it;
+    r->spent.clear();
     return n;
 }
 
-// kvq_next with one thread: parse, trim and sieve here
-static long next_inline(Reader* r, long cap, long lmax, uint8_t* raw,
-                        uint8_t* codes, int32_t* rl_out, int64_t* filepos,
-                        int32_t* batch_maxrl) {
+// kvq_next with one thread: parse, trim and sieve here, into the
+// reader's own item
+static long take_inline(Reader* r, long cap, long lmax, int32_t* rl_out,
+                        int64_t* filepos, int* batch_maxrl) {
     long out = 0;
     int maxrl = 0;
+    WorkItem* inl = &r->inl;
+    inl->cands.clear();
+    inl->codes.clear();
+    inl->raws.clear();
     // with the sieve active one call could otherwise consume the whole
     // file; cap the records parsed per call (once something was emitted)
     // so live stats / stop() stay responsive
@@ -2395,29 +2521,29 @@ static long next_inline(Reader* r, long cap, long lmax, uint8_t* raw,
                                 &r->error);
         r->rls_longest = rls_longest;
         if (ret < 0) return -1;
-        if (ret > 0 && rl > lmax) {
-            // stride too small: un-count the histogram entry (the
+        if (ret > 0 && round_up(rl) > lmax) {
+            // rows too narrow: un-count the histogram entry (the
             // record is fully re-parsed after the caller grows its
-            // buffers via kvq_pending_rl) and leave buf_pos on it
+            // rows via kvq_pending_width) and leave buf_pos on it
             int hrl = rl < MAX_READLENGTH ? rl : MAX_READLENGTH - 1;
             r->rls[hrl]--;
             r->pending_rl = rl;
-            *batch_maxrl = maxrl;
-            return out > 0 ? out : -2;
+            if (out == 0) return -2;
+            break;
         }
         r->records_parsed = r->records_parsed + 1;
         if (ret > 0) {
-            uint8_t* rrow = raw + out * lmax;
-            uint8_t* crow = codes + out * lmax;
-            std::memcpy(rrow, b + bs, (size_t)rl);
-            for (int i = 0; i < rl; i++) crow[i] = r->code_of[rrow[i]];
+            const int64_t fp = r->buf_offset + (int64_t)bs;
+            append_cand(r, inl, b + bs, rl, fp);
             rl_out[out] = rl;
-            filepos[out] = r->buf_offset + (int64_t)bs;
+            filepos[out] = fp;
             if (rl > maxrl) maxrl = rl;
             out++;
         }
         r->buf_pos = nls[3] + 1;
     }
+    if (out > 0)
+        r->taken.push_back(Reader::Taken{inl, 0, (size_t)out});
     *batch_maxrl = maxrl;
     return out;
 }
@@ -2513,7 +2639,7 @@ int main(int argc, char** argv) {
     }
     for (int64_t c = 0; c < p5k; c++) start[c + 1] += start[c];
 
-    Reader* r = kvq_open(nullptr, 0, 33, 25, 1, 0);
+    Reader* r = kvq_open(nullptr, 0, 33, 25, 1, 0, 0);
     kvq_set_sieve(r, start.data(), gpos.data(), gtid.data(),
                   tstart.data(), tstop.data(), bank.data(), k, t, m, e);
 

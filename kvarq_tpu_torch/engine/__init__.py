@@ -209,16 +209,17 @@ def _scan(name, nseqs):
         _running = False
 
 
-def _batches(fnames, sieve):
-    ''' the shared reader's batches under the current configuration;
-        malformed input raises FastqFileFormatException '''
+def _batches(fnames, sieve, raw):
+    ''' the shared reader's batches under the current configuration,
+        with the reads' bytes where ``raw``; malformed input raises
+        FastqFileFormatException '''
     from kvarq_tpu_torch.fastq import FastqFileFormatException
     try:
         yield from reader.prefetch(reader.batches(
             fnames, ord(_config['Amin']), _config['minreadlength'], _stats,
             batchsize=_extra_config['batchsize'],
             stop_check=lambda: _stop, sieve=sieve,
-            nthreads=_config['nthreads']))
+            nthreads=_config['nthreads'], raw=raw))
     except reader.FastqFormatError as e:
         raise FastqFileFormatException(str(e))
 
@@ -288,7 +289,8 @@ def countseqs(fname, seqs):
                 # sieve-fed batches hold only candidate reads: start dense
                 scanner.assume_dense()
 
-        for batch in _batches(fnames, sieve):
+        # the scanners read the codes alone
+        for batch in _batches(fnames, sieve, raw=False):
             if scanner is None:
                 continue
             with span('engine.scan'):
@@ -388,7 +390,7 @@ def _hits(fnames, seqs, numpy_path):
     seqlens = [len(s) for s in seqs]
     hits = []
     hitseqs = []
-    for batch in _batches(fnames, sieve):
+    for batch in _batches(fnames, sieve, raw=True):
         if matcher is None:
             continue
         with span('engine.match'):

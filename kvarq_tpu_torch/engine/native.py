@@ -24,7 +24,7 @@ import numpy as np
 
 from kvarq_tpu_torch import profiling
 from kvarq_tpu_torch.log import lo
-from kvarq_tpu_torch.engine import encode, reader
+from kvarq_tpu_torch.engine import reader
 
 HERE = os.path.abspath(os.path.dirname(__file__))
 SRC = os.path.join(os.path.dirname(HERE), 'csrc', 'reader.cpp')
@@ -39,7 +39,8 @@ LIB_COMPAT = os.path.join(BUILD, '_reader_compat.so')
 MAX_READLENGTH = reader.MAX_READLENGTH
 # the counters of kvq_prof, in its order, as the scan records them
 PROF_COUNTERS = ('reader.sieve_ns', 'reader.inflate_ns', 'reader.records',
-                 'reader.survivors', 'reader.ahead_bytes')
+                 'reader.survivors', 'reader.ahead_bytes',
+                 'reader.consumer_wait_ns')
 
 
 def _cpu_supports_v3():
@@ -190,7 +191,7 @@ def get_lib():
         lib.kvq_open.restype = ctypes.c_void_p
         lib.kvq_open.argtypes = [ctypes.POINTER(ctypes.c_char_p),
                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_int, ctypes.c_long]
+                                 ctypes.c_int, ctypes.c_long, ctypes.c_int]
         lib.kvq_error.restype = ctypes.c_char_p
         lib.kvq_error.argtypes = [ctypes.c_void_p]
         lib.kvq_stats.argtypes = [ctypes.c_void_p] + \
@@ -210,12 +211,12 @@ def get_lib():
         lib.kvq_next.argtypes = [
             ctypes.c_void_p, ctypes.c_long, ctypes.c_long,
             np.ctypeslib.ndpointer(np.uint8, flags='C'),
-            np.ctypeslib.ndpointer(np.uint8, flags='C'),
+            ctypes.c_void_p,    # raw rows, or NULL
             np.ctypeslib.ndpointer(np.int32, flags='C'),
             np.ctypeslib.ndpointer(np.int64, flags='C'),
             ctypes.POINTER(ctypes.c_int32)]
-        lib.kvq_pending_rl.restype = ctypes.c_long
-        lib.kvq_pending_rl.argtypes = [ctypes.c_void_p]
+        lib.kvq_pending_width.restype = ctypes.c_long
+        lib.kvq_pending_width.argtypes = [ctypes.c_void_p]
         lib.kvq_set_prof.restype = None
         lib.kvq_set_prof.argtypes = [ctypes.c_void_p]
         lib.kvq_set_ahead_budget.restype = None
@@ -233,7 +234,7 @@ def available():
 
 
 def batches(fnames, Amin, minreadlength, stats, batchsize=16384,
-            stop_check=None, sieve=None, nthreads=1):
+            stop_check=None, sieve=None, nthreads=1, raw=True):
     ''' generator over reader.RecordBatch, same contract as
         reader.batches() but backed by the native pipeline.  With a
         ``sieve`` (kvarq_tpu_torch.engine.sieve.KmerSieve), provably hit-free
@@ -242,9 +243,12 @@ def batches(fnames, Amin, minreadlength, stats, batchsize=16384,
         parse/trim/sieve work out over C worker threads pulling
         record-aligned spans from the shared stream (the reference's
         pthread architecture, workhorse.c:1375-1408), with batches still
-        emitted in deterministic record order.  While the scan records
-        (:py:mod:`kvarq_tpu_torch.profiling`) each kvq_next call is the
-        span ``reader.next``, and the reader's :py:data:`PROF_COUNTERS`
+        emitted in deterministic record order; the workers translate the
+        reads that pass into codes, and one kvq_next call writes a batch's
+        rows, padded, at their final width.  Without ``raw`` the batches
+        carry ``raw=None`` and no read's bytes are kept.  While the scan
+        records (:py:mod:`kvarq_tpu_torch.profiling`) each kvq_next call is
+        the span ``reader.next``, and the reader's :py:data:`PROF_COUNTERS`
         are counted once at the end '''
     lib = get_lib()
     names = (ctypes.c_char_p * len(fnames))(
@@ -254,7 +258,7 @@ def batches(fnames, Amin, minreadlength, stats, batchsize=16384,
     # attachments, enables reader/device overlap when lowered
     parse_cap = int(os.environ.get('KVARQ_PARSE_CAP', '0'))
     h = lib.kvq_open(names, len(fnames), Amin, minreadlength, nthreads,
-                     parse_cap)
+                     parse_cap, int(raw))
     prof = profiling.is_recording()
     if prof:
         lib.kvq_set_prof(h)
@@ -285,46 +289,41 @@ def batches(fnames, Amin, minreadlength, stats, batchsize=16384,
         stats.rls_longest = lg.value
         stats.rls[:] = rls_buf
 
-    # buffers are reused across batches (yielded arrays are copies) --
-    # fresh allocations would pay one soft page fault per written row.
-    # The stride grows on demand when a read exceeds it (long-read
-    # FastQs; kvq_next returns -2 without consuming anything)
+    # the widest rows a batch may take; it grows on demand when a read
+    # needs more (long-read FastQs; kvq_next returns -2 without
+    # consuming anything)
     stride = MAX_READLENGTH
-    raw = np.zeros((batchsize, stride), dtype=np.uint8)
-    codes = np.zeros((batchsize, stride), dtype=np.uint8)
-    rl = np.empty(batchsize, dtype=np.int32)
-    fp = np.empty(batchsize, dtype=np.int64)
-
     try:
         while True:
             if stop_check is not None and stop_check():
                 break
             with profiling.span('reader.next'):
-                maxrl = ctypes.c_int32()
-                n = lib.kvq_next(h, batchsize, stride, raw, codes,
-                                 rl, fp, ctypes.byref(maxrl))
+                # fresh arrays for every batch, so that a yielded batch
+                # stays valid while later ones are read; kvq_next writes
+                # its rows one after another at the batch's own width
+                codes = np.empty(batchsize * stride, dtype=np.uint8)
+                raws = np.empty(batchsize * stride, dtype=np.uint8) \
+                    if raw else None
+                rl = np.empty(batchsize, dtype=np.int32)
+                fp = np.empty(batchsize, dtype=np.int64)
+                lpad = ctypes.c_int32()
+                n = lib.kvq_next(h, batchsize, stride, codes,
+                                 None if raws is None else raws.ctypes.data,
+                                 rl, fp, ctypes.byref(lpad))
                 sync_stats()
                 if n == -2:
-                    stride = reader._round_up(int(lib.kvq_pending_rl(h)))
-                    raw = np.zeros((batchsize, stride), dtype=np.uint8)
-                    codes = np.zeros((batchsize, stride), dtype=np.uint8)
+                    stride = int(lib.kvq_pending_width(h))
                     continue
                 if n < 0:
                     raise reader.FastqFormatError(
                         lib.kvq_error(h).decode())
                 if n == 0:
                     break
-                Lpad = reader._round_up(int(maxrl.value))
-                codes_b = np.ascontiguousarray(codes[:n, :Lpad])
-                raw_b = np.ascontiguousarray(raw[:n, :Lpad])
-                # rows are only filled up to rl by the C side; pad
-                # vectorized
-                pad = np.arange(Lpad, dtype=np.int32)[None, :] \
-                    >= rl[:n, None]
-                codes_b[pad] = encode.CODE_READ_JUNK
-                raw_b[pad] = 0
-                batch = reader.RecordBatch(codes_b, rl[:n].copy(),
-                                           fp[:n].copy(), raw_b)
+                size = n * lpad.value
+                batch = reader.RecordBatch(
+                    codes[:size].reshape(n, lpad.value), rl[:n], fp[:n],
+                    None if raws is None
+                    else raws[:size].reshape(n, lpad.value))
             yield batch
     finally:
         if prof:

@@ -46,7 +46,8 @@ class RecordBatch:
     - ``rl``: int32 [B] trimmed read lengths (all >= minreadlength)
     - ``filepos``: int64 [B] global decompressed offset of the trimmed
       read start (the reference's ``Hit.file_pos``)
-    - ``raw``: uint8 [B, Lpad] raw trimmed read bytes (for hitseqs)
+    - ``raw``: uint8 [B, Lpad] raw trimmed read bytes, padded with 0 (for
+      hitseqs), or None where the batches were read without them
     '''
 
     __slots__ = ('codes', 'rl', 'filepos', 'raw')
@@ -211,7 +212,7 @@ def parse_records(buf, global_offset, Amin, stats, at_eof):
 
 
 def batches(fnames, Amin, minreadlength, stats, batchsize=4096,
-            stop_check=None, sieve=None, nthreads=1):
+            stop_check=None, sieve=None, nthreads=1, raw=True):
     '''
     generator over :py:class:`RecordBatch` es for the given files.
 
@@ -227,6 +228,8 @@ def batches(fnames, Amin, minreadlength, stats, batchsize=4096,
     :param nthreads: native-pipeline parse/trim/sieve worker threads
         (reference ``nthreads``, workhorse.c:74); output is deterministic
         regardless.  The numpy fallback ignores it.
+    :param raw: the batches carry the reads' bytes (``raw``); without it
+        ``raw`` is None, for callers that read the codes alone
 
     Dispatches to the native C++ pipeline (csrc/reader.cpp) when it is
     available; the numpy implementation below is the byte-exact fallback
@@ -237,17 +240,18 @@ def batches(fnames, Amin, minreadlength, stats, batchsize=4096,
         if native.available():
             yield from native.batches(fnames, Amin, minreadlength, stats,
                                       batchsize, stop_check, sieve,
-                                      nthreads)
+                                      nthreads, raw)
             return
     if sieve is not None:
         for batch in batches(fnames, Amin, minreadlength, stats,
-                             batchsize, stop_check):
+                             batchsize, stop_check, raw=raw):
             sel = sieve.candidates(batch)
             if sel is None:
                 yield batch
             elif len(sel):
-                yield RecordBatch(batch.codes[sel], batch.rl[sel],
-                                  batch.filepos[sel], batch.raw[sel])
+                yield RecordBatch(
+                    batch.codes[sel], batch.rl[sel], batch.filepos[sel],
+                    None if batch.raw is None else batch.raw[sel])
         return
 
     pend = []   # list of (rl int, filepos int, raw bytes) per read, in order
@@ -259,12 +263,12 @@ def batches(fnames, Amin, minreadlength, stats, batchsize=4096,
         B = len(items)
         # pad with NUL -- never equal to any template byte, so padding can
         # never be counted as a match by the byte-exact golden matcher
-        raw = np.zeros((B, Lpad), dtype=np.uint8)
+        rows = np.zeros((B, Lpad), dtype=np.uint8)
         for i, it in enumerate(items):
-            raw[i, :it[0]] = np.frombuffer(it[2], dtype=np.uint8)
-        codes = encode.encode_read_array(raw)
+            rows[i, :it[0]] = np.frombuffer(it[2], dtype=np.uint8)
+        codes = encode.encode_read_array(rows)
         codes[np.arange(Lpad)[None, :] >= rl[:, None]] = encode.CODE_READ_JUNK
-        return RecordBatch(codes, rl, fp, raw)
+        return RecordBatch(codes, rl, fp, rows if raw else None)
 
     def flush(force=False):
         nonlocal pend
@@ -365,7 +369,9 @@ def prefetch(iterator, depth=2):
 
 def _round_up(n):
     ''' pad read length to a small set of static shapes to bound the number
-        of compiled kernel variants '''
+        of compiled kernel variants; the native reader's rows take the
+        same widths from ``round_up`` in csrc/reader.cpp, which sets both
+        a batch's width and the wider rows after its -2 return '''
     for cap in (64, 128, 192, 256, 384, 512, 768, 1024):
         if n <= cap:
             return cap

@@ -350,7 +350,7 @@ def scan_sharded(fnames, seqs, maxerrors, minoverlap, minreadlength,
 
     src = reader.prefetch(reader.batches(
         mine, ord(Amin), minreadlength, stats, sieve=sieve,
-        nthreads=nthreads)) if mine else ()
+        nthreads=nthreads, raw=False)) if mine else ()
     for batch in src:
         B, L = batch.codes.shape
         if L > Lpad:

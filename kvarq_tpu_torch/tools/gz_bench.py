@@ -62,15 +62,15 @@ def write_gz(dst, src, level=1):
 
 def drain(fname, nthreads, sieve=None):
     ''' the reader's batches over ``fname`` (Q ``.``, minimum read length
-        25, 65,536-read batches): ``(records parsed, reads passed, bytes
-        parsed, wall s)`` '''
+        25, 65,536-read batches, codes alone as the coverage scan reads
+        them): ``(records parsed, reads passed, bytes parsed, wall s)`` '''
     from kvarq_tpu_torch.engine import reader
     stats = reader.ReaderStats()
     t0 = time.time()
     nreads = 0
     for batch in reader.batches([fname], ord('.'), 25, stats,
                                 batchsize=65536, sieve=sieve,
-                                nthreads=nthreads):
+                                nthreads=nthreads, raw=False):
         nreads += len(batch)
     dt = time.time() - t0
     return stats.records_parsed, nreads, stats.parsed, dt

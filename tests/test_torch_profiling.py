@@ -166,7 +166,7 @@ def test_native_reader_profile_changes_no_batch(tmp_path, gz, nthreads):
     # the counters with the profile off: no time, the same counts
     lib = native.get_lib()
     names = (native.ctypes.c_char_p * 1)(fname.encode())
-    h = lib.kvq_open(names, 1, ord('!') + 13, 25, nthreads, 0)
+    h = lib.kvq_open(names, 1, ord('!') + 13, 25, nthreads, 0, 1)
     # the reader keeps pointers into these until kvq_close
     arrays = [np.ascontiguousarray(a, dtype=t) for a, t in (
         (sieve.start, np.int32), (sieve.gpos, np.int32),
@@ -178,15 +178,15 @@ def test_native_reader_profile_changes_no_batch(tmp_path, gz, nthreads):
     codes = np.zeros((64, 1024), np.uint8)
     rl = np.zeros(64, np.int32)
     fp = np.zeros(64, np.int64)
-    maxrl = native.ctypes.c_int32()
-    while lib.kvq_next(h, 64, 1024, raw, codes, rl, fp,
-                       native.ctypes.byref(maxrl)) > 0:
+    lpad = native.ctypes.c_int32()
+    while lib.kvq_next(h, 64, 1024, codes, raw.ctypes.data, rl, fp,
+                       native.ctypes.byref(lpad)) > 0:
         pass
     got = np.zeros(len(native.PROF_COUNTERS), np.int64)
     lib.kvq_prof(h, got)
     lib.kvq_close(h)
     assert list(got) == [0, 0, counts['reader.records'],
-                         counts['reader.survivors'], 0]
+                         counts['reader.survivors'], 0, 0]
     assert counts['reader.ahead_bytes'] == 0
 
 
@@ -226,6 +226,58 @@ def test_native_reader_counts_the_bytes_decoded_ahead(tmp_path, kind,
     assert 0 <= ahead <= os.path.getsize(mates[1])
     if nthreads == 1:
         assert ahead == os.path.getsize(mates[1])
+
+
+@pytest.mark.parametrize('nthreads', [1, 4])
+def test_native_reader_counts_the_consumers_wait(tmp_path, monkeypatch,
+                                                 nthreads):
+    ''' reader.consumer_wait_ns: the time kvq_next waited for the
+        workers' next item, counted once a scan inside recording() alone
+        and never above the scan's ``reader.next`` spans.  The input is a
+        FIFO whose writer waits 0.2 s before it writes, so the workers
+        hold the consumer at least that long; one thread has no workers
+        and waits for none '''
+    with open(FASTQ, 'rb') as fd:
+        data = fd.read()
+    fifo = str(tmp_path / 'reads.fastq')
+    os.mkfifo(fifo)
+    counted = []
+    count = profiling.count
+    monkeypatch.setattr(profiling, 'count', lambda name, n: (
+        counted.append(name), count(name, n)))
+
+    def write():
+        with open(fifo, 'wb') as fd:
+            time.sleep(0.2)
+            fd.write(data)
+
+    def scan(fname):
+        return sum(len(b) for b in native.batches(
+            [fname], ord('!') + 13, 25, reader.ReaderStats(), batchsize=64,
+            nthreads=nthreads))
+
+    writer = threading.Thread(target=write)
+    writer.start()
+    with profiling.recording():
+        reads = scan(fifo)
+        rec = profiling.collect()
+    writer.join(timeout=30)
+    assert not writer.is_alive()
+    assert reads == scan(FASTQ) > 64
+    assert counted.count('reader.consumer_wait_ns') == 1
+    wait = rec['counts']['reader.consumer_wait_ns']
+    nexts = sum(end - start for name, _, start, end in rec['spans']
+                if name == 'reader.next')
+    if nthreads == 1:
+        assert wait == 0
+    else:
+        assert 0.15e9 < wait <= nexts
+
+    # outside recording() nothing is counted
+    del counted[:]
+    assert scan(FASTQ) == reads
+    assert counted == []
+    assert profiling.collect() == {'spans': [], 'counts': {}}
 
 
 def test_span_lines_up_with_record_function(tmp_path):
