@@ -62,8 +62,9 @@ MATE_SEED = 20260818    # the second file of phase (l)'s pair
 DENSE_READS = 262144
 DENSE_PLANT = 0.5
 MAIN_B = 16384      # reads per batch, as the engine's default batchsize
-GATHER_K = 768      # the scanner's first gather_k (tensor_scan)
-ABOVE_K = 128       # a gather_k below a batch's candidates
+# the main-path batch's candidate count lies in (CAND_LO, CAND_HI]: a sparse
+# batch whose screened step scores more than CAND_LO rows
+CAND_LO, CAND_HI = 128, 768
 # CLI defaults (kvarq_tpu_torch/config.py): e=2, o=25, r=25, Q13 on Sanger
 SCAN = dict(maxerrors=2, minoverlap=25, minreadlength=25, nthreads=8,
             Amin=chr(33 + 13))
@@ -180,8 +181,8 @@ def s1_phase(tps, native_cuda, codes, rl, state, e, mo, mm_ms, card):
     except AssertionError as err:
         raise SmokeFailure('%s at the main-path shape' % err)
     n = out['gathered']['rows']
-    check(ABOVE_K < n <= GATHER_K, 'the main-path batch has %d candidates, '
-          'not in (%d, %d]' % (n, ABOVE_K, GATHER_K))
+    check(CAND_LO < n <= CAND_HI, 'the main-path batch has %d candidates, '
+          'not in (%d, %d]' % (n, CAND_LO, CAND_HI))
     for form, r in out.items():
         check(r['hit_weight'] > 0, 'S1 %s: no hit weight' % form)
         say('b', 'S1 == score_candidates_ref exactly, %s; the fp16 '
@@ -228,7 +229,7 @@ def no_sync_gate(tps, tts, reader, dev, seqs, held, want, card):
     compaction on the card, S1 on the candidates).  The flushes, and the
     gathered scanner's first step (its one peek at the count), run outside
     that mode.  Both equal ``want`` (the unsieved ``countseqs`` of (c)) bit
-    for bit.  Then one step whose count is above its gather_k (128) runs
+    for bit.  Then one screened step of more than CAND_LO candidates runs
     under the mode and equals the dense step.
     '''
     import torch
@@ -267,7 +268,8 @@ def no_sync_gate(tps, tts, reader, dev, seqs, held, want, card):
         torch.cuda.synchronize()
         dt = time.time() - t0
         k1n, s1n = tps.cand_counts.launches, tps.score_candidates.launches
-        # a batch not above gather_k (the last) is scored densely
+        # a batch of at most SCREEN_MIN_ROWS reads (the last) is scored
+        # whole
         check(s1n == len(batches) and (0 < k1n <= s1n if mode == 'gathered'
                                        else k1n == 0),
               '%s steps: %d batches, S1 launches %d, K1 %d'
@@ -282,36 +284,36 @@ def no_sync_gate(tps, tts, reader, dev, seqs, held, want, card):
               'sieve=off' % mode)
         say('c', 'no host round trip: %d %s steps of %d reads under '
             'set_sync_debug_mode("error") (S1 launches %d, K1 %d; flushes%s '
-            'outside it) in %.3fs, gather_k ends at %d, peak device memory '
+            'outside it) in %.3fs, dense at the end %s, peak device memory '
             '%.2f GB; basecounts, seqhits and seqbasehits equal countseqs '
             'sieve=off bit for bit; %s' % (
                 len(batches), mode, MAIN_B, s1n, k1n,
                 ' and the first step' if mode == 'gathered' else '', dt,
-                sc.gather_k, torch.cuda.max_memory_allocated() / 1e9, card))
+                sc.dense, torch.cuda.max_memory_allocated() / 1e9, card))
     state = sc._ctx[Lpad]['state']
     c = torch.from_numpy(held[0][0]).to(dev)
     r = torch.from_numpy(held[0][1].astype(np.int32)).to(dev)
-    dense = tps.scan_step_banked(c, r, state, e, mo, 0)
+    dense = tps.scan_step_banked(c, r, state, e, mo, False)
     torch.cuda.synchronize()
     zero_launches(tps)
     torch.cuda.set_sync_debug_mode('error')
     try:
-        over = tps.scan_step_banked(c, r, state, e, mo, ABOVE_K)
+        over = tps.scan_step_banked(c, r, state, e, mo, True)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     n = int(over[3])
-    check(n > ABOVE_K and tps.score_candidates.launches == 1
-          and tps.cand_counts.launches == 1, 'the step above gather_k: %d '
+    check(n > CAND_LO and tps.score_candidates.launches == 1
+          and tps.cand_counts.launches == 1, 'the screened step: %d '
           'candidates, S1 %d and K1 %d launches' % (
               n, tps.score_candidates.launches, tps.cand_counts.launches))
     for what, a, b in zip(('basecount', 'seqhits', 'seqbasehits'), over,
                           dense):
-        check(torch.equal(a, b), 'the step above gather_k: %s differs from the '
+        check(torch.equal(a, b), 'the screened step: %s differs from the '
               'dense step' % what)
-    say('c', 'one step with gather_k %d and %d candidates under '
+    say('c', 'one screened step with %d candidates under '
         'set_sync_debug_mode("error"): S1 covers every candidate (its blocks '
         'grid does not depend on the count), equal to the dense step bit for '
-        'bit' % (ABOVE_K, n))
+        'bit' % n)
 
 
 def run(cmd, env=None, timeout=300, seconds=None, stderr=False):
@@ -1145,10 +1147,10 @@ def entry_phase(tps, by_path, card):
     check(bench['score_launches'] > 0, 'device_bench never launched S1')
     say('j', 'device_bench: %d reads in batches of %d on %s in %.3fs: %.1f '
         'reads/s, %.2f TOP/s, %d hit weight, up to %d candidates per batch '
-        '(gather_k %d), K1 launches %d, S1 launches %d; %s' % (
+        '(screened %s), K1 launches %d, S1 launches %d; %s' % (
             bench['reads'], bench['batch'], bench['device'], bench['seconds'],
             bench['reads_per_s'], bench['tops'], bench['hit_weight'],
-            bench['max_candidates'], bench['gather_k'],
+            bench['max_candidates'], bench['screen'],
             bench['cand_launches'], bench['score_launches'], card))
     out = run([sys.executable, '-m', 'kvarq_tpu_torch.tools.bench_scaling',
                '--max', '4'], timeout=600)
@@ -1808,9 +1810,9 @@ def main():
         torch.cuda.synchronize()
         t_dev = time.time() - t0
         say('c', 'breakdown sieve=%s: reader%s alone %.3fs (%d reads passed '
-            'in %d batches); scanner alone %.3fs (gather_k ends at %d)' % (
+            'in %d batches); scanner alone %.3fs (dense at the end %s)' % (
                 sieve, '+sieve' if sieve == 'auto' else '', t_read,
-                sum(len(r) for _, r in held), len(held), t_dev, sc.gather_k))
+                sum(len(r) for _, r in held), len(held), t_dev, sc.dense))
         if sieve == 'off':
             unsieved = held
         del held, sc

@@ -119,14 +119,10 @@ struct Stream {
     // for the size estimate (same access rule)
     int64_t decoded = 0;
     int64_t produced = 0;       // decompressed bytes yielded
-    // background whole-file libdeflate decode (small gz files): once
-    // ready, decompressed bytes are served from `bg->dec` instead of
-    // streaming through zlib
-    struct BgDecode* bg = nullptr;
-    bool bg_serving = false;
-    int64_t known_total = -1;   // exact decompressed size once known
-    // big-file pipelined decode paths (see open_stream)
-    struct RingDecode* ring = nullptr;    // dedicated zlib decode thread
+    // exact decompressed size, known at open time for BGZF; -1 otherwise
+    int64_t known_total = -1;
+    // the gzip decoders (see open_stream)
+    struct RingDecode* ring = nullptr;    // dedicated decode thread
     struct BgzfDecode* bgzf = nullptr;    // parallel per-block libdeflate
     // plain regular files are mmap'd: workers take zero-copy spans
     // straight from the mapping (no fill_buf syscall+copy under the
@@ -149,23 +145,11 @@ bool has_gz_suffix(const std::string& fname) {
     return n > 3 && fname.compare(n - 3, 3, ".gz") == 0;
 }
 
-// background decode of a whole (small) gz file with libdeflate (~3x
-// zlib): runs concurrently with the zlib streaming path, which serves
-// reads until the decode is ready; `state` 1=running 2=ready 3=unusable.
-// The thread opens the file independently and shares nothing with the
-// consumer but this struct.
-struct BgDecode {
-    std::thread thr;
-    std::atomic<int> state{1};
-    std::vector<uint8_t> dec;
-    std::atomic<uint64_t>* inflate_ticks = nullptr;   // Stream's
-};
-
-// pipelined streaming decode for big plain-gzip files: a dedicated thread
-// runs the zlib inflate loop (multi-stream restart, trailing-garbage
-// semantics identical to the inline path) into a bounded chunk queue, so
-// decompression overlaps with record parsing/sieving instead of running
-// under the shared stream mutex.  Memory stays flat (MAX_BYTES window;
+// pipelined streaming decode for plain-gzip files: a dedicated thread
+// runs the inflate loop (ring_fast_main or ring_zlib_main: multi-stream
+// restart, trailing-garbage semantics identical) into a bounded chunk
+// queue, so decompression overlaps with record parsing/sieving instead of
+// running under the shared stream mutex.  Memory stays flat (MAX_BYTES window;
 // `limit` is larger only while the stream is read ahead, see open_ahead).
 struct RingDecode {
     std::thread thr;
@@ -526,10 +510,6 @@ static int64_t mem_available_bytes() {
     return kb > 0 ? (int64_t)kb * 1024 : -1;
 }
 
-#ifdef KVARQ_USE_LIBDEFLATE
-void bg_decode_main(BgDecode* bg, std::string fname, int64_t fsize);
-#endif
-
 // fast-inflate variant of the ring producer: decodes straight off the
 // stream's mmap'd compressed file (kvq_fast_inflate.h, ~2x zlib) with a
 // 32 KB window kept contiguous before the chunk area.  Same queue
@@ -607,21 +587,13 @@ void ring_fast_main(Stream* s) {
 }
 #endif
 
-// body of the RingDecode producer thread: the same zlib streaming loop
-// as the inline path (multi-stream restart, trailing-garbage and error
-// semantics identical) pushing 1 MB chunks into the bounded queue.  Owns
-// s.f / s.zs / s.zin exclusively once started.
+// body of the RingDecode producer thread for unmapped gzip input (FIFOs,
+// or where mmap fails): the same zlib streaming loop as the inline path
+// (multi-stream restart, trailing-garbage and error semantics identical)
+// pushing 1 MB chunks into the bounded queue.  Owns s.f / s.zs / s.zin
+// exclusively once started.
 void ring_zlib_main(Stream* s) {
     RingDecode* rd = s->ring;
-#ifdef KVARQ_HAVE_MMAP
-    if (s->map) {
-        const char* ff = std::getenv("KVARQ_FAST_INFLATE");
-        if (!(ff && ff[0] == '0')) {
-            ring_fast_main(s);
-            return;
-        }
-    }
-#endif
     for (;;) {
         const uint64_t t0 = s->inflate_ticks ? prof_now() : 0;
         std::vector<uint8_t> out(1u << 20);
@@ -695,9 +667,12 @@ void ring_zlib_main(Stream* s) {
     }
 }
 
-// open s for reading and start its decoder.  `ahead_limit` > 0 opens a
-// stream ahead of its turn (open_ahead): a plain ring whose queue may hold
-// that many bytes, with no BGZF pool and no background takeover
+// open s for reading and start its decoder, chosen from the input alone:
+// a BGZF file (libdeflate builds) gets the parallel block pool, any other
+// gzip input one ring producer -- ring_fast_main on a mapped file,
+// ring_zlib_main otherwise.  `ahead_limit` > 0 opens a stream ahead of its
+// turn (open_ahead): a ring whose queue may hold that many bytes, with no
+// BGZF pool
 bool open_stream(Stream& s, std::string* err, int nthreads,
                  size_t ahead_limit = 0) {
     s.f = std::fopen(s.fname.c_str(), "rb");
@@ -728,11 +703,9 @@ bool open_stream(Stream& s, std::string* err, int nthreads,
         // docs/performance.md "reader thread scaling").  Gzip: the ring
         // producer's fast whole-input inflate (kvq_fast_inflate.h)
         // decodes straight off the mapping, ~2x zlib's streaming rate.
-        // $KVARQ_MMAP=0 falls back to buffered reads everywhere.
-        const char* mm = std::getenv("KVARQ_MMAP");
+        // Where mmap fails the buffered paths run.
         struct stat st;
-        if (!(mm && mm[0] == '0')
-                && ::fstat(::fileno(s.f), &st) == 0 && S_ISREG(st.st_mode)
+        if (::fstat(::fileno(s.f), &st) == 0 && S_ISREG(st.st_mode)
                 && (int64_t)st.st_size == s.fsize) {
             void* p = ::mmap(nullptr, (size_t)s.fsize, PROT_READ,
                              MAP_PRIVATE, ::fileno(s.f), 0);
@@ -756,12 +729,9 @@ bool open_stream(Stream& s, std::string* err, int nthreads,
         s.z_init = true;
         s.zin.resize(1u << 20);
 #ifdef KVARQ_USE_LIBDEFLATE
-        const char* e = std::getenv("KVARQ_LIBDEFLATE");
-        bool ld_ok = !(e && e[0] == '0');
         // the probe RE-OPENS the file, which would steal bytes from a
-        // FIFO writer: regular files only (fsize>0 also gates the bg
-        // takeover and the mmap fast-inflate below for the same reason)
-        if (ld_ok && is_reg && !ahead_limit) {
+        // FIFO writer: regular files only
+        if (is_reg && !ahead_limit) {
             // BGZF fast path: any size, parallel per-block decode, exact
             // decompressed size known before the first byte is served
             std::vector<BgzfBlock> blocks;
@@ -775,82 +745,48 @@ bool open_stream(Stream& s, std::string* err, int nthreads,
                     s.bgzf->fd = fd;
                     s.bgzf->inflate_ticks = s.inflate_ticks;
                     s.known_total = total;
+                    // at least one worker or bgzf_read waits forever on
+                    // a block nobody will publish
                     int nthr = nthreads < 1 ? 1 : nthreads;
                     if (nthr > 8) nthr = 8;
-                    const char* bt = std::getenv("KVARQ_BGZF_THREADS");
-                    if (bt && bt[0]) nthr = std::atoi(bt);
-                    // at least one worker or bgzf_read waits forever on
-                    // a block nobody will publish; cap the fan-out too
-                    if (nthr < 1) nthr = 1;
-                    if (nthr > 64) nthr = 64;
                     for (int i = 0; i < nthr; i++)
                         s.bgzf->thrs.emplace_back(bgzf_worker_main, s.bgzf);
                     return true;
                 }
             }
         }
-        // whole-file background decode for RAM-fitting plain-gz files
-        // (libdeflate, ~3x zlib); the streaming ring serves bytes until
-        // the decode is ready, so there is no startup stall.  The
-        // decode is DUPLICATED work while both run, so the big-file
-        // takeover only pays when a core is free to absorb it: on a
-        // 2-core host it loses the race against the pipelined ring and
-        // slows everything down (measured 5.7 s -> 12 s on a 1.7 GB
-        // corpus), while with spare cores it converts the post-decode
-        // remainder to full-speed in-memory parsing.  Small files
-        // (<= 64 MB) keep the takeover unconditionally: the decode wins
-        // long before the ring warms up.  RAM gate: compressed +
-        // 3-5x decompressed must fit comfortably (MemAvailable / 12).
-        int64_t bgcap = (int64_t)64 * 1024 * 1024;
-        const unsigned hw = std::thread::hardware_concurrency();
-        if (hw >= (unsigned)nthreads + 2) {
-            int64_t mem = mem_available_bytes();
-            if (mem > 0 && mem / 12 > bgcap) bgcap = mem / 12;
-        }
-        const char* bc = std::getenv("KVARQ_GZ_BGCAP");
-        if (bc && bc[0]) bgcap = std::atoll(bc);
-        // when the ring's fast inflate will run (mapped file), the
-        // whole-file takeover is pure duplicated decode at comparable
-        // speed -- skip it
-        const char* ff2 = std::getenv("KVARQ_FAST_INFLATE");
-        bool fast_ring = s.map && !(ff2 && ff2[0] == '0');
-        if (ld_ok && !fast_ring && !ahead_limit && s.fsize > 0
-                && s.fsize <= bgcap) {
-            s.bg = new BgDecode();
-            s.bg->inflate_ticks = s.inflate_ticks;
-            s.bg->thr = std::thread(bg_decode_main, s.bg, s.fname, s.fsize);
-        }
 #else
         (void)nthreads;
 #endif
         // generic gzip: pipelined streaming decode on a dedicated thread
-        // (bounded queue, flat memory, any file size) -- replaces the old
-        // inline inflate that ran under the shared stream mutex
+        // (bounded queue, flat memory, any file size)
         s.ring = new RingDecode();
         if (ahead_limit) {
             s.ring->limit = ahead_limit;
             s.ahead = true;
         }
-        s.ring->thr = std::thread(ring_zlib_main, &s);
+#ifdef KVARQ_HAVE_MMAP
+        if (s.map)
+            s.ring->thr = std::thread(ring_fast_main, &s);
+        else
+#endif
+            s.ring->thr = std::thread(ring_zlib_main, &s);
     }
     return true;
 }
 
-void abandon_ring(Stream& s) {
-    if (!s.ring) return;
-    {
-        std::lock_guard<std::mutex> l(s.ring->m);
-        s.ring->abandon = true;
-    }
-    s.ring->cv_space.notify_all();
-    s.ring->cv_data.notify_all();
-    if (s.ring->thr.joinable()) s.ring->thr.join();
-    delete s.ring;
-    s.ring = nullptr;
-}
-
 void close_stream(Stream& s) {
-    abandon_ring(s);
+    if (s.ring) {
+        {
+            std::lock_guard<std::mutex> l(s.ring->m);
+            s.ring->abandon = true;
+        }
+        s.ring->cv_space.notify_all();
+        s.ring->cv_data.notify_all();
+        if (s.ring->thr.joinable()) s.ring->thr.join();
+        delete s.ring;
+        s.ring = nullptr;
+    }
     if (s.bgzf) {
         {
             std::lock_guard<std::mutex> l(s.bgzf->m);
@@ -863,12 +799,6 @@ void close_stream(Stream& s) {
         if (s.bgzf->fd >= 0) ::close(s.bgzf->fd);
         delete s.bgzf;
         s.bgzf = nullptr;
-    }
-    if (s.bg) {
-        if (s.bg->thr.joinable()) s.bg->thr.join();
-        delete s.bg;
-        s.bg = nullptr;
-        s.bg_serving = false;
     }
     if (s.z_init) { inflateEnd(&s.zs); s.z_init = false; }
     if (s.f) { std::fclose(s.f); s.f = nullptr; }
@@ -895,15 +825,13 @@ void open_ahead(Reader* r) {
             || st.st_size <= 0)
         return;
 #ifdef KVARQ_USE_LIBDEFLATE
-    const char* e = std::getenv("KVARQ_LIBDEFLATE");
     std::vector<BgzfBlock> blocks;
     int64_t total = 0;
-    if (!(e && e[0] == '0')
-            && bgzf_probe(s.fname, (int64_t)st.st_size, &blocks, &total))
+    if (bgzf_probe(s.fname, (int64_t)st.st_size, &blocks, &total))
         return;
 #endif
     if (r->ahead_budget < 0) {
-        // the RAM gate of the background takeover (open_stream)
+        // a twelfth of the free memory, at least one ring's usual bound
         const int64_t mem = mem_available_bytes();
         r->ahead_budget = mem > 0 ? mem / 12 : 0;
         if (r->ahead_budget < (int64_t)RingDecode::MAX_BYTES)
@@ -1037,105 +965,9 @@ long stream_read(Stream& s, uint8_t* out, size_t want, std::string* err) {
     }
 #ifdef KVARQ_USE_LIBDEFLATE
     if (s.bgzf) return bgzf_read(s, out, want, err);
-    if (s.bg && !s.bg_serving &&
-        s.bg->state.load(std::memory_order_acquire) == 2) {
-        // background decode finished: serve the rest from its buffer
-        // (picking up exactly where the ring stream left off -- both
-        // decode the same file, so the bytes are identical)
-        s.bg_serving = true;
-        s.known_total = (int64_t)s.bg->dec.size();
-        abandon_ring(s);
-        __atomic_store_n(&s.compressed_read, s.fsize,
-                         __ATOMIC_RELAXED);
-    }
-    if (s.bg_serving) {
-        const std::vector<uint8_t>& dec = s.bg->dec;
-        size_t pos = (size_t)s.produced;
-        size_t n = pos < dec.size() ? dec.size() - pos : 0;
-        if (n > want) n = want;
-        std::memcpy(out, dec.data() + pos, n);
-        s.produced += (long)n;
-        return (long)n;
-    }
 #endif
     return ring_read(s, out, want, err);
 }
-
-// ---- accelerated gz decode ----------------------------------------------
-
-#ifdef KVARQ_USE_LIBDEFLATE
-// body of the background decode thread: slurp the compressed file and
-// decode all gzip members (multi-stream semantics, workhorse.c:841-866)
-// into bg->dec.  Any failure -- short read, bad data, pathological
-// ratio -- just marks the decode unusable (state 3); the concurrent zlib
-// streaming path keeps going and reports errors with its own messages.
-void bg_decode_main(BgDecode* bg, std::string fname, int64_t fsize) try {
-    // busy for the whole of its life: read, decode, done
-    struct Busy {
-        std::atomic<uint64_t>* acc;
-        uint64_t t0;
-        ~Busy() { prof_add(acc, t0); }
-    } busy{bg->inflate_ticks, bg->inflate_ticks ? prof_now() : 0};
-    FILE* f = std::fopen(fname.c_str(), "rb");
-    std::vector<uint8_t> in((size_t)fsize);
-    bool ok = f && std::fread(in.data(), 1, in.size(), f) == in.size();
-    if (f) std::fclose(f);
-    libdeflate_decompressor* d =
-        ok ? libdeflate_alloc_decompressor() : nullptr;
-    if (!d) {
-        bg->state.store(3, std::memory_order_release);
-        return;
-    }
-    // growth bound: pathological-ratio guard AND current free RAM (a
-    // legal high-ratio file must abandon the takeover, not OOM -- the
-    // streaming ring is decoding the same file concurrently anyway)
-    size_t cap = in.size() * 48 + (1u << 24);
-    const int64_t mem = mem_available_bytes();
-    if (mem > 0 && cap > (size_t)(mem / 2)) cap = (size_t)(mem / 2);
-    size_t pos = 0;       // consumed compressed bytes
-    size_t len = 0;       // produced decompressed bytes
-    // start from a generous ratio guess (resize copies + zero-fills, so
-    // repeated doubling on multi-GB outputs is real wall time), but never
-    // above the RAM cap: on a tight-memory host the uncapped guess could
-    // throw bad_alloc and abandon a takeover that fits at cap
-    size_t init = in.size() * 5 + (1u << 24);
-    bg->dec.resize(init < cap ? init : cap);
-    while (ok && pos < in.size()) {
-        size_t ain = 0, aout = 0;
-        libdeflate_result res = libdeflate_gzip_decompress_ex(
-            d, in.data() + pos, in.size() - pos,
-            bg->dec.data() + len, bg->dec.size() - len, &ain, &aout);
-        if (res == LIBDEFLATE_INSUFFICIENT_SPACE &&
-            bg->dec.size() < cap) {
-            size_t want = bg->dec.size() * 2;
-            bg->dec.resize(want < cap ? want : cap);
-            continue;
-        }
-        if (res != LIBDEFLATE_SUCCESS) {
-            ok = false;
-            break;
-        }
-        pos += ain;
-        len += aout;
-    }
-    libdeflate_free_decompressor(d);
-    if (!ok) {
-        bg->dec.clear();
-        bg->dec.shrink_to_fit();
-        bg->state.store(3, std::memory_order_release);
-        return;
-    }
-    bg->dec.resize(len);
-    bg->state.store(2, std::memory_order_release);
-} catch (...) {
-    // allocation failure etc. must mark the decode unusable, not
-    // escape the thread (which would std::terminate the process)
-    bg->dec.clear();
-    bg->dec.shrink_to_fit();
-    bg->state.store(3, std::memory_order_release);
-}
-#endif
-
 // refresh the decompressed-size estimate: exact when the stream was fully
 // decoded, else from the compression ratio so far (workhorse.c:882-884)
 void refine_est(Reader* r, size_t si) {

@@ -120,8 +120,8 @@ def _build(lib_path, generic=False):
             base = ['g++', '-O3'] + arch + \
                 ['-DKVARQ_SRC_HASH="%s"' % _src_hash(),
                  '-shared', '-fPIC', '-pthread', '-o', tmp, SRC]
-            # libdeflate (~3x zlib inflate) accelerates the gz producer
-            # pipeline when present; plain zlib otherwise; a machine
+            # libdeflate (~3x zlib inflate) decodes BGZF blocks in parallel
+            # when present; plain zlib otherwise; a machine
             # with NEITHER still builds -- csrc/kvq_inflate.h is a
             # self-contained streaming inflate (slower, same results),
             # the analogue of the reference vendoring miniz

@@ -28,9 +28,9 @@ the exact scoring of one batch of reads.
   triplet into a buffer at a slot taken by an atomic counter; the device
   work kvarq_tpu leaves to XLA in ``match_xla._jit_step``), on a CPU
   tensor its plain version :py:func:`hit_triplets_ref`.
-- :py:func:`scan_step_banked` is one device step in dense mode (exact
-  scoring of every read) or gathered mode (screen, compaction on the
-  device with :py:func:`compact`, exact scoring of every candidate).  On
+- :py:func:`scan_step_banked` is one device step that scores every read
+  or screens them (the screen, compaction on the device with
+  :py:func:`compact`, exact scoring of every candidate).  On
   the card it never waits on the host.
 
 Exact scoring keeps the JAX package's quantities but not its layout: the
@@ -772,32 +772,26 @@ def compact(mask, size=None):
     return idx[:size], count
 
 
-def gathers(gather_k, B):
-    ''' whether :py:func:`scan_step_banked` runs a step of ``B`` reads in
-        gathered mode (screen, compaction, scoring of the candidates)
-        rather than dense mode '''
-    return bool(gather_k) and gather_k < B
-
-
-def scan_step_banked(codes, rl, state, maxerrors, minoverlap, gather_k=768,
+def scan_step_banked(codes, rl, state, maxerrors, minoverlap, screen,
                      rows=None):
     '''
     one scan step over ``codes [B, Lpad] uint8``, ``rl [B] int32``:
     :returns: ``(basecount [5, G], seqhits [T+1], seqbasehits [T+1],
-        count)`` -- int64 tensors, and the number of candidate reads (0 in
-        dense mode) as a 0-d int32 tensor on the device of ``codes``, which
-        drives TensorScanner's adaptive ``gather_k``.  ``rows`` bounds the
-        reads per pass of the plain scoring (:py:func:`score_candidates`).
+        count)`` -- int64 tensors, and the number of candidate reads (0
+        when the step does not screen) as a 0-d int32 tensor on the device
+        of ``codes``, which TensorScanner reads to decide when to turn
+        dense.  ``rows`` bounds the reads per pass of the plain scoring
+        (:py:func:`score_candidates`).
 
-    Dense mode (``gather_k`` 0, or not below B) scores every read.
-    Otherwise the candidate screen flags reads, they are compacted on the
-    device (:py:func:`compact`) and scored exactly, however many flag
-    (the scoring kernel's grid does not depend on the count), which
-    equals kvarq_tpu's full-batch fallback (a read the screen does not
-    flag scores nothing).  On a CUDA tensor nothing here reads a device
-    value on the host, and nothing of size ``[B, Qp]`` is allocated.
+    Without ``screen`` every read is scored.  With it the candidate screen
+    flags reads, they are compacted on the device (:py:func:`compact`) and
+    scored exactly, however many flag (the scoring kernel's grid does not
+    depend on the count), which equals kvarq_tpu's full-batch fallback (a
+    read the screen does not flag scores nothing).  On a CUDA tensor
+    nothing here reads a device value on the host, and nothing of size
+    ``[B, Qp]`` is allocated.
     '''
-    if not gathers(gather_k, codes.shape[0]):
+    if not screen:
         count = torch.zeros((), dtype=torch.int32, device=codes.device)
         return (*score_candidates(codes, rl, state, maxerrors, minoverlap,
                                   rows=rows), count)

@@ -1,16 +1,14 @@
 '''
 Scan driver of the port (counterpart of kvarq_tpu/engine/tensor_scan.py):
 the mode gating :py:func:`mode_weights`, the accumulating single-device
-:py:class:`TensorScanner`, and copies of kvarq_tpu's numpy helpers
-:py:func:`build_bank` and :py:func:`default_gather_k`.  kvarq_tpu's
+:py:class:`TensorScanner` with its screen-or-dense rule :py:func:`screens`,
+and a copy of kvarq_tpu's numpy helper :py:func:`build_bank`.  kvarq_tpu's
 ``fold_into_coverage`` (base counts into a
 :py:class:`~kvarq_tpu_torch.analyse.Coverage`) is the port's
 :py:func:`kvarq_tpu_torch.engine.encode.fold_into_coverage`, in a module
 without torch, so that a scan on the host's numpy matcher never imports
 torch.
 '''
-
-import os
 
 import numpy as np
 import torch
@@ -24,19 +22,6 @@ def build_bank(seqs, Lpad, minoverlap=None):
     # imported here: match_xla imports this module
     from kvarq_tpu_torch.engine.match_xla import _Bank
     return _Bank(seqs, Lpad, minoverlap)
-
-
-def default_gather_k():
-    ''' resolve $KVARQ_GATHER_K: an explicit integer pins the compacted
-        exact-scoring width; ``auto`` (the default) starts at 768 (the JAX
-        package's value, tuned on its TPU) and lets TensorScanner adapt
-        upward when the observed candidate count overflows it '''
-    v = os.environ.get('KVARQ_GATHER_K', 'auto').strip().lower()
-    if v in ('', 'auto'):
-        return 768, True
-    if v in ('0', 'off', 'dense'):
-        return 0, False          # dense mode: no screen, exact full pass
-    return int(v), False
 
 
 def mode_weights(matches, rl_col, d_row, seql_row, valid_row,
@@ -98,37 +83,52 @@ def score_rows(device, Qp):
     return max(512, fit // 512 * 512)
 
 
+def screens(scanner, rows):
+    ''' the scan's one screen-or-dense rule: a step of ``rows`` reads
+        screens (candidate screen, compaction, exact scoring of the
+        candidates) iff ``scanner`` is not dense and ``rows`` is above its
+        ``SCREEN_MIN_ROWS``; otherwise every row is scored.  Both give the
+        same counts. '''
+    return not scanner.dense and rows > scanner.SCREEN_MIN_ROWS
+
+
 class TensorScanner:
     ''' single-device scan driver: accumulates bank-position base counts
         and per-template stats over many batches.
 
         On the card a step is the whole batch: the candidate screen K1
-        (gathered mode) and the exact scoring S1, one launch each, with no
-        host round trip; the candidate count stays on the card (its
-        maximum over the steps, ``torch.maximum``).  On the CPU the plain
-        screen and scoring materialise ``[B, Qp]``, so the step itself is
-        :py:func:`score_rows` reads.  Accumulators live on the device in
-        int64 (exact at any step size) and are flushed into the host
-        totals, the candidate maximum with them in one transfer, every
-        :py:data:`FLUSH_STEPS` steps; besides, the first step of each
-        context reads its count once (a hit-dense input adapts at once).
-        ``gather_k`` follows the JAX package's adaptive policy: start at
-        768 (``$KVARQ_GATHER_K``), grow over :py:data:`GATHER_BUCKETS`
-        when the observed candidate count overflows, terminal dense mode
-        past the last bucket.
+        and the exact scoring S1 of the candidates, one launch each, or S1
+        alone over every row (:py:func:`screens`), with no host round
+        trip; the candidate count stays on the card (its maximum over the
+        steps, ``torch.maximum``).  On the CPU the plain screen and scoring
+        materialise ``[B, Qp]``, so the step itself is :py:func:`score_rows`
+        reads.  Accumulators live on the device in int64 (exact at any step
+        size) and are flushed into the host totals, the candidate maximum
+        with them in one transfer, every :py:data:`FLUSH_STEPS` steps.
+
+        A step of at most :py:data:`SCREEN_MIN_ROWS` reads is scored
+        whole.  The scan turns ``dense`` for good (every later step scored
+        whole) when a candidate count reaches :py:data:`DENSE_AT`: read at
+        the first screened step of each context (a hit-dense input turns
+        at once) and at each flush.  :py:meth:`assume_dense` starts it
+        dense.
 
         Inside :py:func:`kvarq_tpu_torch.profiling.recording` a step
         records the span ``engine.copy`` (the copies of its codes and
         lengths to the device) and the counters ``scan.h2d_bytes`` (their
         bytes), ``scan.screened`` (reads with a length above 0 that the
-        screen takes, gathered mode), ``scan.scored`` (rows the exact
-        scoring takes: the step's rows in dense mode, the compacted
-        candidates in gathered mode, summed on the device and read with
-        the flush's transfer) and ``scan.adapted`` (changes of
-        ``gather_k``, the switch to dense mode included). '''
+        screen takes) and ``scan.scored`` (rows the exact scoring takes:
+        the step's rows when it does not screen, the compacted candidates
+        when it does, summed on the device and read with the flush's
+        transfer). '''
 
     FLUSH_STEPS = 64
-    GATHER_BUCKETS = (768, 1536, 3072, 6144)
+    # the values at which the JAX package's gather_k ladder acted: its
+    # first bucket, and the least candidate maximum c with
+    # c + 8 sqrt(c) + 64 above its last bucket, 6144
+    SCREEN_MIN_ROWS = 768
+    DENSE_AT = 5488
+    dense = False
 
     def __init__(self, seqs, maxerrors, minoverlap, device):
         self.seqs = list(seqs)
@@ -136,16 +136,14 @@ class TensorScanner:
         self.minoverlap = minoverlap
         self.T = len(self.seqs)
         self.device = torch.device(device)
-        self.gather_k, self._gather_auto = default_gather_k()
         self._ctx = {}
         self.reset()
 
     def assume_dense(self):
-        ''' sieve-fed input is candidate-dense: start in dense mode instead
-            of discovering it on the first step.  No-op when gather_k was
-            pinned explicitly or a context exists already. '''
-        if self._gather_auto and not self._ctx:
-            self.gather_k = 0
+        ''' sieve-fed input is candidate-dense: start dense instead of
+            discovering it.  No-op once a context exists. '''
+        if not self._ctx:
+            self.dense = True
 
     def reset(self):
         self.basecounts = {}   # Lpad -> accumulated [5, G] host int64
@@ -167,26 +165,13 @@ class TensorScanner:
                                self._ctx[Lpad]['rows']))
         return self._ctx[Lpad]
 
-    def _adapt_gather(self, Lpad, candmax):
-        ''' grow gather_k when the observed per-step candidate count
-            overflows it (auto mode); returns True when it changed.  The
-            bank state does not depend on gather_k, so every context is
-            kept and only its accumulators are flushed first. '''
-        if not self._gather_auto or self.gather_k == 0:
-            return False         # pinned, or dense mode (terminal)
-        want = int(candmax + 8 * np.sqrt(max(candmax, 1)) + 64)
-        if want <= self.gather_k:
-            return False
-        new = next((b for b in self.GATHER_BUCKETS if b >= want), 0)
-        if new and new <= self.gather_k:
-            return False
-        lo.info('gather_k %d -> %s (observed %d candidates/step)'
-                % (self.gather_k, new if new else 'dense', candmax))
-        profiling.count('scan.adapted', 1)
-        self.gather_k = new
-        for lp in list(self._ctx):
-            self._flush(lp, adapt=False)
-        return True
+    def _observe(self, candmax):
+        ''' turn dense for good at a candidate maximum of DENSE_AT.  The
+            accumulators are exact in either mode, so nothing is flushed. '''
+        if not self.dense and candmax >= self.DENSE_AT:
+            lo.info('scoring every row from here (observed %d candidates '
+                    'a step)' % candmax)
+            self.dense = True
 
     def _step(self, Lpad, codes, rl):
         ctx = self._ctx[Lpad]
@@ -196,15 +181,16 @@ class TensorScanner:
             codes_d = torch.from_numpy(codes).to(self.device,
                                                  non_blocking=True)
             rl_d = torch.from_numpy(rl).to(self.device, non_blocking=True)
+        screen = screens(self, len(rl))
         bc, sh, sbh, count = pallas_scan.scan_step_banked(
             codes_d, rl_d, ctx['state'], self.maxerrors, self.minoverlap,
-            self.gather_k, ctx['rows'])
-        # the rows scored in gathered mode stay on the device until the
+            screen, ctx['rows'])
+        # the rows scored after the screen stay on the device until the
         # flush; None while not recording
         scored = None
         if profiling.is_recording():
             profiling.count('scan.h2d_bytes', codes.nbytes + rl.nbytes)
-            if pallas_scan.gathers(self.gather_k, len(rl)):
+            if screen:
                 profiling.count('scan.screened', int(np.count_nonzero(rl)))
                 scored = count.long()
             else:
@@ -219,24 +205,23 @@ class TensorScanner:
             if scored is not None:
                 acc[4] = scored if acc[4] is None else acc[4] + scored
         ctx['steps'] += 1
-        if self._gather_auto and self.gather_k and not ctx['peeked']:
-            # a hit-dense input overflows from its first step: adapt now
-            # (one scalar read back per context) instead of scoring the
-            # overflow until the flush
+        if screen and not ctx['peeked']:
+            # a hit-dense input shows at its first screened step: one
+            # scalar read back per context, rather than screening it until
+            # the flush
             ctx['peeked'] = True
-            if self._adapt_gather(Lpad, int(count)):
-                return
+            self._observe(int(count))
         if ctx['steps'] >= self.FLUSH_STEPS:
             self._flush(Lpad)
 
-    def _flush(self, Lpad, adapt=True):
+    def _flush(self, Lpad):
         ''' move the device accumulators into the host totals '''
         ctx = self._ctx[Lpad]
         if ctx['acc'] is None:
             return
         bc, sh, sbh, cm, scored = ctx['acc']
         # one transfer: the accumulators, the candidate maximum and, while
-        # recording, the rows scored in gathered mode
+        # recording, the rows scored after the screen
         parts = [bc.flatten(), sh, sbh, cm.view(1).long()]
         if scored is not None:
             parts.append(scored.view(1))
@@ -250,10 +235,8 @@ class TensorScanner:
         host += flat[:nbc].reshape(host.shape)
         self.seqhits += flat[nbc:nbc + self.T]
         self.seqbasehits += flat[nbc + self.T + 1:nbc + 2 * self.T + 1]
-        candmax = int(flat[-1])
         ctx.update(acc=None, steps=0)
-        if adapt:
-            self._adapt_gather(Lpad, candmax)
+        self._observe(int(flat[-1]))
 
     def finalize(self):
         ''' flush all device accumulators; must be called before reading

@@ -3,7 +3,7 @@ Entry points of the port (counterpart of the repository's
 ``__graft_entry__.py``):
 
 - :py:func:`entry` -- one scan step on the flagship workload (the full
-  MTBC template bank against a batch of 512 reads): the gathered step
+  MTBC template bank against a batch of 512 reads): the screened step
   ``pallas_scan.scan_step_banked`` (candidate screen, compaction, exact
   scoring) on either device; the screen and the scoring are the
   hand-written kernels K1 and S1 on the card, with no host round trip,
@@ -25,7 +25,6 @@ LPAD = 128
 B = 512
 MINOVERLAP = 25
 MAXERRORS = 2
-GATHER_K = 128
 
 
 def _mtbc_seqs():
@@ -55,7 +54,7 @@ def entry(device='cuda'):
 
     def fn(codes, rl):
         bc, sh, sbh, _ = pallas_scan.scan_step_banked(
-            codes, rl, state, MAXERRORS, MINOVERLAP, gather_k=GATHER_K)
+            codes, rl, state, MAXERRORS, MINOVERLAP, screen=True)
         return bc, sh, sbh
 
     rng = np.random.RandomState(0)

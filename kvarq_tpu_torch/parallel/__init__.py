@@ -33,7 +33,8 @@ from kvarq_tpu_torch import device as _device
 from kvarq_tpu_torch.engine import encode, pallas_scan
 from kvarq_tpu_torch.engine.match_xla import _Bank
 from kvarq_tpu_torch.engine.pallas_scan import pack_qmeta, pack_tseg
-from kvarq_tpu_torch.engine.tensor_scan import score_rows
+from kvarq_tpu_torch.engine.tensor_scan import (TensorScanner, score_rows,
+                                                screens)
 from kvarq_tpu_torch.log import lo
 
 
@@ -211,16 +212,15 @@ def _pad_rows(codes, rl, n_data):
                             codes.shape[1])
 
 
-def sharded_scan_step(mesh, bank, codes, rl, maxerrors, minoverlap,
-                      gather_k):
+def sharded_scan_step(mesh, bank, codes, rl, maxerrors, minoverlap, screen):
     '''
     one scan step over a chunk ``codes [B, Lpad] uint8``, ``rl [B]`` (host
     arrays, ``B`` a multiple of ``n_data``) on every entry of ``mesh``
     against ``bank`` (:py:class:`ShardBank`).
 
-    ``gather_k`` 0 is dense mode (no candidate screen); otherwise every
-    entry screens its slice with the candidate kernel and scores at most
-    ``gather_k`` candidates, with the full-slice fallback.
+    Without ``screen`` every entry scores every row of its slice; with it
+    every entry screens its slice with the candidate kernel and scores
+    every candidate exactly.
 
     :returns: ``(basecount [n_bank, 5, G], seqhits [T+1], seqbasehits
         [T+1], launches)`` -- int64 tensors on ``mesh.first`` and an int64
@@ -239,7 +239,7 @@ def sharded_scan_step(mesh, bank, codes, rl, maxerrors, minoverlap,
             continue
         before = pallas_scan.cand_counts.launches
         b, s, sb, _ = pallas_scan.scan_step_banked(
-            c, r, state, maxerrors, minoverlap, gather_k,
+            c, r, state, maxerrors, minoverlap, screen,
             score_rows(dev, state.Qp))
         launches[i, j] = pallas_scan.cand_counts.launches - before
         bc[j] += b.to(first)
@@ -331,16 +331,17 @@ class ShardedScanner:
         single-device scanner.
 
         A batch is cut into steps of ``B_LOCAL`` rows per data slice (the
-        last one padded with rl=0 rows to a multiple of ``n_data``).  In
-        gathered mode every entry screens its slice and scores up to
-        ``min(GATHER_K, B_LOCAL)`` candidates; :py:meth:`assume_dense`
-        (sieve-fed input) scores every row with no screen.  The merged
+        last one padded with rl=0 rows to a multiple of ``n_data``).  Every
+        entry screens its slice and scores the candidates where the
+        single-device rule, ``tensor_scan.screens``, says so for the
+        slice's rows, and scores every row otherwise;
+        :py:meth:`assume_dense` (sieve-fed input) never screens.  The merged
         step results accumulate in int64 on the mesh's first device and
         flush to the host every ``FLUSH_STEPS`` steps.  ``launches`` counts
         the candidate-kernel launches per mesh entry. '''
 
     B_LOCAL = 2048
-    GATHER_K = 512
+    SCREEN_MIN_ROWS = TensorScanner.SCREEN_MIN_ROWS
     FLUSH_STEPS = 64
 
     def __init__(self, seqs, maxerrors, minoverlap, mesh):
@@ -385,15 +386,14 @@ class ShardedScanner:
         B, Lpad = batch.codes.shape
         bank = self.context(Lpad)
         ctx = self._ctx[Lpad]
-        gather_k = 0 if self.dense else min(self.GATHER_K, self.B_LOCAL)
         chunk = self.B_LOCAL * self.mesh.shape['data']
         for lo_ in range(0, B, chunk):
             codes, rl = _pad_rows(batch.codes[lo_:lo_ + chunk],
                                   batch.rl[lo_:lo_ + chunk],
                                   self.mesh.shape['data'])
             *step, launches = sharded_scan_step(
-                self.mesh, bank, codes, rl, self.maxerrors,
-                self.minoverlap, gather_k)
+                self.mesh, bank, codes, rl, self.maxerrors, self.minoverlap,
+                screens(self, len(codes) // self.mesh.shape['data']))
             self.launches += launches
             if ctx['acc'] is None:
                 ctx['acc'] = step

@@ -9,10 +9,11 @@ Methodology: the MTBC bank (Lpad 128, 2 errors, minoverlap 25); batches
 of ``--batch`` reads (16,384) of ``--readlen`` bases, ``--hitfrac`` of
 them planted from template loci; up to 32 distinct batches (the JAX
 tool's fused sub-batches) built on the host and uploaded once, then
-``--batches`` steps of ``pallas_scan.scan_step_banked`` with the
-scanner's starting ``gather_k`` (``KVARQ_GATHER_K``, 768) taking them in
-turn, the step results summed in int64 on the device and the candidate
-count kept there (its maximum is read once, after the clock stops).  One
+``--batches`` steps of ``pallas_scan.scan_step_banked`` taking them in
+turn, each screened where the scanner's rule screens a fresh scan's step
+of that many reads (``tensor_scan.screens``: more than 768 reads), the
+step results summed in int64 on the device and the candidate count kept
+there (its maximum is read once, after the clock stops).  One
 untimed warm-up step; ``torch.cuda.synchronize()`` before the clock
 stops.  TOP/s counts the one-hot match product, ``2 * reads * Lpad * nch *
 Qp``, as the JAX tool does.  kvarq_tpu's ``--fuse`` (dispatch fusing)
@@ -68,10 +69,11 @@ def main(argv=None):
     bank = tensor_scan.build_bank(seqs, LPAD, MINOVERLAP)
     state = pallas_scan.device_arrays(bank, len(seqs), dev)
     rows = tensor_scan.score_rows(dev, state.Qp)
-    gather_k = tensor_scan.default_gather_k()[0]
-    print('bank G=%d Qp=%d nch=%d on %s in %.1fs; gather_k %d, plain '
-          'scoring passes of <= %d reads' % (bank.G, state.Qp, state.nch, name,
-                                     time.time() - t0, gather_k, rows),
+    screen = tensor_scan.screens(tensor_scan.TensorScanner, args.batch)
+    print('bank G=%d Qp=%d nch=%d on %s in %.1fs; steps %s, plain '
+          'scoring passes of <= %d reads' % (
+              bank.G, state.Qp, state.nch, name, time.time() - t0,
+              'screened' if screen else 'scored whole', rows),
           file=sys.stderr)
 
     # synthetic batches: mostly random reads, --hitfrac planted templates
@@ -94,7 +96,7 @@ def main(argv=None):
     def step(k, acc):
         *out, count = pallas_scan.scan_step_banked(
             dcodes[k % nb], drl[k % nb], state, MAXERRORS, MINOVERLAP,
-            gather_k, rows)
+            screen, rows)
         if acc is None:
             return out, count
         for a, d in zip(acc, out):
@@ -132,7 +134,7 @@ def main(argv=None):
     print(json.dumps({
         'metric': 'device_bench', 'device': name, 'reads': reads,
         'batch': args.batch, 'seconds': dt, 'reads_per_s': reads / dt,
-        'tops': ops / dt / 1e12, 'hit_weight': hits, 'gather_k': gather_k,
+        'tops': ops / dt / 1e12, 'hit_weight': hits, 'screen': screen,
         'max_candidates': int(candmax), 'cand_launches': launches,
         'score_launches': scored}))
 

@@ -24,6 +24,7 @@ from kvarq_tpu.testsuites import discover_testsuites, load_testsuites
 from kvarq_tpu_torch import analyse, cli
 from kvarq_tpu_torch import engine as tengine
 from kvarq_tpu_torch import testsuites as ttestsuites
+from kvarq_tpu_torch.engine import tensor_scan as tts
 from kvarq_tpu_torch.fastq import Fastq as TFastq
 
 HERE = os.path.abspath(os.path.dirname(__file__))
@@ -65,10 +66,11 @@ def _port_mtbc():
 @needs_genome
 @pytest.mark.parametrize('sieve', ['auto', 'off'])
 def test_analyser_matches_numpy_hit_path(sieve, monkeypatch):
-    ''' unsieved, gather_k is pinned below the fixture's read count so the
-        scan runs the candidate screen on the full MTBC bank '''
+    ''' unsieved, steps above 64 reads screen (below the fixture's read
+        count), so the scan runs the candidate screen on the full MTBC
+        bank '''
     if sieve == 'off':
-        monkeypatch.setenv('KVARQ_GATHER_K', '64')
+        monkeypatch.setattr(tts.TensorScanner, 'SCREEN_MIN_ROWS', 64)
     suites = _mtbc()
     fastq = Fastq(FASTQ2, quiet=True)
     params = dict(maxerrors=2, minoverlap=25, minreadlength=25,

@@ -262,15 +262,19 @@ def test_cand_counts_rejects_bad_input(cuda):
         tps.cand_counts(c, r, state, 0, 25, 5)
 
 
-@pytest.mark.parametrize('gather_k', [0, 8, 1])
-def test_scan_step_cuda_matches_cpu(cuda, gather_k):
+@pytest.mark.parametrize('screen,rows', [(False, None), (True, None),
+                                         (True, 1)],
+                         ids=['dense', 'screened', 'screened-rows1'])
+def test_scan_step_cuda_matches_cpu(cuda, screen, rows):
+    ''' the card's step equals the CPU's, whose plain scoring may run in
+        passes of ``rows`` reads '''
     seqs, codes, rl, bank = case(42, 4, minoverlap=10)
     want = tps.scan_step_banked(
         torch.from_numpy(codes), torch.from_numpy(rl),
-        tps.device_arrays(bank, len(seqs), 'cpu'), 1, 10, gather_k)
+        tps.device_arrays(bank, len(seqs), 'cpu'), 1, 10, screen, rows)
     got = tps.scan_step_banked(
         torch.from_numpy(codes).to(cuda), torch.from_numpy(rl).to(cuda),
-        tps.device_arrays(bank, len(seqs), cuda), 1, 10, gather_k)
+        tps.device_arrays(bank, len(seqs), cuda), 1, 10, screen)
     for w, g in zip(want[:3], got[:3]):
         np.testing.assert_array_equal(w.numpy(), g.cpu().numpy())
     assert got[3].device.type == 'cuda' and got[3].dim() == 0
@@ -287,7 +291,7 @@ def test_tensor_scanner_cuda_matches_cpu(cuda, rows, monkeypatch):
     out = []
     for dev in ('cpu', cuda):
         sc = tts.TensorScanner(seqs, 1, 5, dev)
-        sc.gather_k, sc._gather_auto = 4, False
+        sc.SCREEN_MIN_ROWS = 4
         stats = reader.ReaderStats()
         before = tps.cand_counts.launches
         nbatches = 0
@@ -319,9 +323,8 @@ def _state(cuda, bank, Lpad, nch):
 def _score_equal(c, r, state, form, params=((2, 25), (3, 8))):
     ''' S1 equals score_candidates_ref exactly: ``dense`` scores every row;
         ``gathered`` the rows K1 flags, compacted (the ranks past the
-        count hold real rows, which must not be read); ``above_gather_k``
-        the scan step whose count is above its ``gather_k`` (a third of
-        the candidates) scores them all.
+        count hold real rows, which must not be read); ``screened_step``
+        the screened scan step scores them all.
         :returns: the hit weight of the first ``(e, mo)`` '''
     weight = None
     for e, mo in params:
@@ -335,10 +338,9 @@ def _score_equal(c, r, state, form, params=((2, 25), (3, 8))):
                                    device=c.device)
             args = (idx, count)
         before = tps.score_candidates.launches
-        if form == 'above_gather_k':
-            k = max(1, n // 3)
-            got = tps.scan_step_banked(c, r, state, e, mo, k)
-            assert int(got[3]) == (n if k < len(c) else 0)   # else dense
+        if form == 'screened_step':
+            got = tps.scan_step_banked(c, r, state, e, mo, True)
+            assert int(got[3]) == n
             got = got[:3]
         else:
             got = tps.score_candidates(c, r, state, e, mo, *args)
@@ -356,7 +358,7 @@ def _score_equal(c, r, state, form, params=((2, 25), (3, 8))):
     return weight
 
 
-@pytest.mark.parametrize('form', ['dense', 'gathered', 'above_gather_k'])
+@pytest.mark.parametrize('form', ['dense', 'gathered', 'screened_step'])
 @pytest.mark.parametrize('bank', ['one tile', 'MTBC'])
 @pytest.mark.parametrize('nch', [4, 5])
 @pytest.mark.parametrize('Lpad', [36, 64, 128, 192])
@@ -364,7 +366,7 @@ def _score_equal(c, r, state, form, params=((2, 25), (3, 8))):
 def test_score_kernel_equals_ref(cuda, B, Lpad, nch, bank, form):
     ''' S1 at every read padding the reader makes (and 36), both channel
         counts, a one-tile and the whole MTBC bank, one read to a
-        main-path batch, dense, gathered and above the step's gather_k '''
+        main-path batch, dense, gathered and as the screened step '''
     seqs, state = _state(cuda, bank, Lpad, nch)
     assert state.nch == nch
     rng = np.random.RandomState(B + Lpad + nch)
@@ -374,7 +376,7 @@ def test_score_kernel_equals_ref(cuda, B, Lpad, nch, bank, form):
     assert weight > 0 or B == 1
 
 
-@pytest.mark.parametrize('form', ['dense', 'gathered', 'above_gather_k'])
+@pytest.mark.parametrize('form', ['dense', 'gathered', 'screened_step'])
 @pytest.mark.parametrize('nch', [4, 5])
 def test_score_kernel_on_bank_shards(cuda, nch, form):
     ''' S1 on each shard of the MTBC bank split in two '''
@@ -460,22 +462,23 @@ def test_score_candidates_rejects_bad_input(cuda):
 
 def test_scan_step_never_waits_on_the_host(cuda):
     ''' under sync debug mode 'error' (any host read of a device value
-        raises): dense, gathered and above-gather_k steps, then 8 scanner
-        steps; the flush, outside it, equals the CPU scanner '''
+        raises): a step scoring every row and two screened steps, then 7
+        scanner steps after the first (its one peek at the count, outside
+        it); the flush, outside it, equals the CPU scanner '''
     seqs, codes, rl, bank = case(42, 4, B=96, minoverlap=10)
     state = tps.device_arrays(bank, len(seqs), cuda)
     c, r = torch.from_numpy(codes).to(cuda), torch.from_numpy(rl).to(cuda)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode('error')
     try:
-        steps = [tps.scan_step_banked(c, r, state, 1, 10, k)
-                 for k in (0, 64, 2)]
+        steps = [tps.scan_step_banked(c, r, state, 1, 10, screen)
+                 for screen in (False, True, True)]
     finally:
         torch.cuda.set_sync_debug_mode(0)
     cpu = tps.device_arrays(bank, len(seqs), 'cpu')
-    for k, got in zip((0, 64, 2), steps):
+    for screen, got in zip((False, True, True), steps):
         want = tps.scan_step_banked(torch.from_numpy(codes),
-                                    torch.from_numpy(rl), cpu, 1, 10, k)
+                                    torch.from_numpy(rl), cpu, 1, 10, screen)
         for w, g in zip(want, got):
             np.testing.assert_array_equal(w.numpy(), g.cpu().numpy())
     assert 2 < int(steps[2][3]) <= 64
@@ -485,13 +488,14 @@ def test_scan_step_never_waits_on_the_host(cuda):
     out = []
     for dev in (cuda, 'cpu'):
         sc = tts.TensorScanner(seqs, 1, 10, dev)
-        sc.gather_k, sc._gather_auto = 4, False
+        sc.SCREEN_MIN_ROWS = 4
         sc._context(codes.shape[1])      # the bank's upload may wait
+        sc.scan_batch(batches[0])
         if dev == cuda:
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode('error')
         try:
-            for batch in batches:
+            for batch in batches[1:]:
                 sc.scan_batch(batch)
         finally:
             torch.cuda.set_sync_debug_mode(0)
@@ -504,24 +508,26 @@ def test_scan_step_never_waits_on_the_host(cuda):
 
 
 def test_recorded_scan_steps_never_wait_on_the_host(cuda):
-    ''' the sparse path's counters and span cost no host wait: 8 gathered
-        scanner steps under sync debug mode 'error' while recording, then
-        the flush, outside it, reads the rows scored; counters and
-        coverage equal the CPU scanner's '''
+    ''' the sparse path's counters and span cost no host wait: 8 screened
+        scanner steps while recording, the 7 after the first (its one peek
+        at the count) under sync debug mode 'error', then the flush,
+        outside it, reads the rows scored; counters and coverage equal the
+        CPU scanner's '''
     seqs, codes, rl, bank = case(42, 4, B=96, minoverlap=10)
     batches = [reader.RecordBatch(codes[k::8], rl[k::8], None, None)
                for k in range(8)]
     out = []
     for dev in (cuda, 'cpu'):
         sc = tts.TensorScanner(seqs, 1, 10, dev)
-        sc.gather_k, sc._gather_auto = 4, False
+        sc.SCREEN_MIN_ROWS = 4
         sc._context(codes.shape[1])      # the bank's upload may wait
         with profiling.recording():
+            sc.scan_batch(batches[0])
             if dev == cuda:
                 torch.cuda.synchronize()
                 torch.cuda.set_sync_debug_mode('error')
             try:
-                for batch in batches:
+                for batch in batches[1:]:
                     sc.scan_batch(batch)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
@@ -604,7 +610,7 @@ def test_sharded_scanner_cuda_matches_tensor_scanner(cuda, dense, cards):
                 parallel.ShardedScanner(seqs, 1, 5, parallel.make_mesh(
                     2, 2, _cards(cuda, cards, 4)))]
     sharded = scanners[1]
-    sharded.B_LOCAL, sharded.GATHER_K = 8, 2
+    sharded.B_LOCAL, sharded.SCREEN_MIN_ROWS = 8, 2
     if dense:
         sharded.assume_dense()
     out = []

@@ -74,15 +74,16 @@ def test_scan_step_banked_matches_kvarq_tpu_twin(name, gather):
     ''' the port's one scan step (``scan_step_banked`` on the CPU, as
         ``entry(device='cpu')`` runs it) against kvarq_tpu's unsieved twin
         ``scan_step_fn``: dense, overflowing its ``gather_k`` (one below the
-        count), and compacted (one above it).  kvarq_tpu counts the reads
-        that hit, the port the reads its candidate screen passes. '''
+        count), and compacted (one above it).  The port scores every row in
+        the first case and screens in the other two, the same step held
+        against the twin's two forms.  kvarq_tpu counts the reads that hit,
+        the port the reads its candidate screen passes. '''
     make, maxerrors, minoverlap = CASES[name]
     seqs, codes, rl = make()
     Lpad, T = codes.shape[1], len(seqs)
     hits, cands = _counts(seqs, codes, rl, Lpad, maxerrors, minoverlap)
     assert 2 <= hits <= cands < len(rl) - 1
-    jk, tk = {'none': (None, 0), 'below': (hits - 1, cands - 1),
-              'above': (hits + 1, cands + 1)}[gather]
+    jk = {'none': None, 'below': hits - 1, 'above': hits + 1}[gather]
 
     jb = jts.build_bank(seqs, Lpad, minoverlap)
     jstep = jts.scan_step_fn(Lpad, jb.G, T, maxerrors, minoverlap,
@@ -94,7 +95,7 @@ def test_scan_step_banked_matches_kvarq_tpu_twin(name, gather):
                               'cpu')
     *got, count = tps.scan_step_banked(
         torch.from_numpy(codes), torch.from_numpy(rl), state, maxerrors,
-        minoverlap, gather_k=tk)
+        minoverlap, screen=gather != 'none')
     assert count == (0 if gather == 'none' else cands)
     for g, w in zip(got, want):
         assert g.dtype == torch.int64
@@ -104,20 +105,20 @@ def test_scan_step_banked_matches_kvarq_tpu_twin(name, gather):
 
 
 def test_entry_runs_one_step_on_both_devices(monkeypatch):
-    ''' entry() on the CPU runs the card's step, ``scan_step_banked`` with
-        ``gather_k`` 128, whose screen is the kernel's plain version '''
+    ''' entry() on the CPU runs the card's step, ``scan_step_banked``
+        screened, whose screen is the kernel's plain version '''
     seqs, _, _ = _random_reads_case(14, nseq=5)
     seqs = [s * 4 for s in seqs]
     monkeypatch.setattr(graft_entry, '_mtbc_seqs', lambda: seqs)
     calls, screens = [], []
     step, ref = tps.scan_step_banked, tps.cand_counts_ref
     monkeypatch.setattr(tps, 'scan_step_banked', lambda *a, **kw: (
-        calls.append(kw['gather_k']) or step(*a, **kw)))
+        calls.append(kw['screen']) or step(*a, **kw)))
     monkeypatch.setattr(tps, 'cand_counts_ref', lambda *a: (
         screens.append(a[0].shape) or ref(*a)))
     fn, (codes, rl) = graft_entry.entry(device='cpu')
     bc, sh, sbh = fn(codes, rl)
-    assert calls == [graft_entry.GATHER_K]
+    assert calls == [True]
     assert screens == [(graft_entry.B, graft_entry.LPAD)]
     assert int(sh[0]) >= 1 and int(sbh[0]) >= int(sh[0])
 

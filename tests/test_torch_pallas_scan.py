@@ -93,8 +93,9 @@ def test_state_from_numpy_matches_device_arrays(nch):
 @pytest.mark.parametrize('gather_k,seed', [(0, 13), (8, 42), (1, 7)],
                          ids=['dense', 'gathered', 'fallback'])
 def test_scan_step_banked_matches_jax(gather_k, seed):
-    ''' dense, gathered (candidates fit gather_k) and overflow-fallback
-        steps equal the Pallas step (interpret mode) and the XLA twin '''
+    ''' the Pallas step (interpret mode) dense, gathered (candidates fit
+        its gather_k) and overflow-fallback, and the XLA twin, equal the
+        port's step scoring every row (dense) or screened (the other two) '''
     rng = np.random.RandomState(seed)
     Lpad, B, e, mo = 64, 16, 1, 10
     seqs, codes, rl, _ = _random_case(rng, nseq=4, B=B, Lpad=Lpad)
@@ -112,7 +113,7 @@ def test_scan_step_banked_matches_jax(gather_k, seed):
     state = tps.device_arrays(bank, T, 'cpu')
     bc, sh, sbh, count = tps.scan_step_banked(
         torch.from_numpy(codes), torch.from_numpy(rl), state, e, mo,
-        gather_k)
+        gather_k != 0)
     got = (bc.numpy(), sh.numpy(), sbh.numpy())
     for name, x, p, g in zip(('basecount', 'seqhits', 'seqbasehits'),
                              xla, pal, got):
@@ -127,16 +128,16 @@ def test_scan_step_banked_matches_jax(gather_k, seed):
     assert np.asarray(xla[1]).sum() > 0
 
 
-@pytest.mark.parametrize('gather_k', [0, 1])
+@pytest.mark.parametrize('screen', [False, True], ids=['0', '1'])
 @pytest.mark.parametrize('rows', [1, 5, 16])
-def test_scoring_in_passes_matches_one_pass(gather_k, rows):
-    ''' a rows bound on exact scoring (dense and fallback steps) splits
-        the work into passes and changes no count '''
+def test_scoring_in_passes_matches_one_pass(screen, rows):
+    ''' a rows bound on exact scoring (steps scoring every row, and
+        screened steps) splits the work into passes and changes no count '''
     rng = np.random.RandomState(3)
     seqs, codes, rl, _ = _random_case(rng, nseq=4, B=16, Lpad=64)
     state = tps.device_arrays(build_bank(seqs, 64, 10), len(seqs), 'cpu')
     args = (torch.from_numpy(codes), torch.from_numpy(rl), state, 1, 10,
-            gather_k)
+            screen)
     want = tps.scan_step_banked(*args)
     got = tps.scan_step_banked(*args, rows=rows)
     for w, g in zip(want[:3], got[:3]):

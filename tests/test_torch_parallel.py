@@ -116,14 +116,14 @@ def _assert_equal(got, want):
 def test_sharded_equals_kvarq_tpu_and_hitpath(nch, dense, n_data, n_bank):
     ''' the port's ShardedScanner equals kvarq_tpu's ShardedScanner on the
         same mesh shape and the hit-list path, bit for bit; gathered with
-        2 candidate slots per 8-row slice (screen, compaction and the
-        full-slice fallback all run) '''
+        every 8-row slice screened (screen, compaction and the scoring of
+        every candidate all run) '''
     _need8()
     jax_ref, hit_ref = _reference(nch, n_data, n_bank)
     assert int(hit_ref[1].sum()) > 0
     sc = parallel.ShardedScanner(_seqs(nch), 1, 5, parallel.make_mesh(
         n_data, n_bank, backend='cpu'))
-    sc.B_LOCAL, sc.GATHER_K = 8, 2
+    sc.B_LOCAL, sc.SCREEN_MIN_ROWS = 8, 2
     if dense:
         sc.assume_dense()
     got = _scan(sc)
@@ -147,7 +147,7 @@ def test_sharded_equals_kvarq_tpu_pallas(dense, n_data, n_bank):
     ref.B_LOCAL, ref.TB, ref.TQ = 640, 128, 128
     sc = parallel.ShardedScanner(seqs, 1, 5, parallel.make_mesh(
         n_data, n_bank, backend='cpu'))
-    sc.B_LOCAL, sc.GATHER_K = 8, 2
+    sc.B_LOCAL, sc.SCREEN_MIN_ROWS = 8, 2
     if dense:
         ref.assume_dense()
         sc.assume_dense()
@@ -193,7 +193,7 @@ def test_every_entry_screens_in_gathered_mode(dense, monkeypatch):
     seqs = _seqs(4)
     sc = parallel.ShardedScanner(seqs, 1, 5, parallel.make_mesh(
         2, 2, backend='cpu'))
-    sc.B_LOCAL, sc.GATHER_K = 4, 2
+    sc.B_LOCAL, sc.SCREEN_MIN_ROWS = 4, 2
     if dense:
         sc.assume_dense()
     B = 16
@@ -359,12 +359,12 @@ def bank_and_reads():
 @pytest.mark.parametrize('n_data,n_bank', [(1, 8), (2, 4)])
 def test_bank_sharded_equals_single_device(bank_and_reads, n_data, n_bank):
     ''' the bank axis at scale (mirror of tests/test_bank_scale.py), with
-        32 candidate slots per slice so the screen runs '''
+        slices above 32 rows screened so the screen runs '''
     _need8()
     seqs, batch, single = bank_and_reads
     sc = parallel.ShardedScanner(seqs, 2, 25, parallel.make_mesh(
         n_data, n_bank, backend='cpu'))
-    sc.GATHER_K = 32
+    sc.SCREEN_MIN_ROWS = 32
     sc.scan_batch(batch)
     got = sc.coverages()
     assert int(single.seqhits.sum()) >= 64

@@ -1,7 +1,7 @@
 '''
 The sparse path's counters and span (kvarq_tpu_torch.engine.tensor_scan):
-``scan.screened``, ``scan.scored``, ``scan.adapted``, ``scan.h2d_bytes``
-and ``engine.copy``, recorded inside ``profiling.recording()`` alone,
+``scan.screened``, ``scan.scored``, ``scan.h2d_bytes`` and
+``engine.copy``, recorded inside ``profiling.recording()`` alone,
 against the plain screen and scoring of ``pallas_scan`` on a seeded bank
 and seeded reads at four mismatches.  CPU only.
 '''
@@ -64,13 +64,14 @@ def _workload(seed, B=300, planted=120, empty=20):
     return seqs, codes, rl
 
 
-def _scanner(seqs, gather_k, rows, monkeypatch):
-    ''' a scanner pinned at ``gather_k`` (0: dense), ``rows`` reads a
-        step, a flush every two steps '''
+def _scanner(seqs, dense, rows, monkeypatch):
+    ''' a scanner that screens steps of more than 4 reads unless
+        ``dense``, ``rows`` reads a step, a flush every two steps '''
     monkeypatch.setattr(tts, 'score_rows', lambda device, Qp: rows)
     monkeypatch.setattr(tts.TensorScanner, 'FLUSH_STEPS', 2)
     sc = tts.TensorScanner(seqs, MAXERRORS, MINOVERLAP, 'cpu')
-    sc.gather_k, sc._gather_auto = gather_k, False
+    sc.SCREEN_MIN_ROWS = 4
+    sc.dense = dense
     return sc
 
 
@@ -99,7 +100,7 @@ def test_counters_against_the_plain_screen(mode, seed, monkeypatch):
     passing, bc, sh, sbh = _plain(seqs, codes, rl)
     assert 0 < passing < np.count_nonzero(rl)
     # 64 reads a step: five steps, three flushes
-    sc = _scanner(seqs, 16 if mode == 'gathered' else 0, 64, monkeypatch)
+    sc = _scanner(seqs, mode == 'dense', 64, monkeypatch)
     with profiling.recording():
         _scan(sc, codes, rl)
         rec = profiling.collect()
@@ -110,7 +111,7 @@ def test_counters_against_the_plain_screen(mode, seed, monkeypatch):
     else:
         assert 'scan.screened' not in counts
         assert counts['scan.scored'] == len(rl)
-    assert 'scan.adapted' not in counts
+    assert set(counts) <= {'scan.screened', 'scan.scored', 'scan.h2d_bytes'}
     assert counts['scan.h2d_bytes'] == codes.nbytes + rl.nbytes
     copies = [s for s in rec['spans'] if s[0] == 'engine.copy']
     assert len(copies) == 5 and all(a <= b for _, _, a, b in copies)
@@ -119,50 +120,52 @@ def test_counters_against_the_plain_screen(mode, seed, monkeypatch):
     np.testing.assert_array_equal(sc.seqhits, sh)
     np.testing.assert_array_equal(sc.seqbasehits, sbh)
     assert sh.sum() > 0
-    quiet = _scanner(seqs, sc.gather_k, 64, monkeypatch)
+    quiet = _scanner(seqs, sc.dense, 64, monkeypatch)
     _scan(quiet, codes, rl)
     np.testing.assert_array_equal(quiet.basecounts[LPAD], bc)
 
 
 def test_adapted_counts_a_growth_and_the_switch_to_dense(monkeypatch):
-    ''' auto gather_k at 4: the first step's peek grows it to a bucket;
-        an overflowing maximum then switches to dense mode, which is
-        terminal '''
+    ''' the first step's peek leaves the scan screening below DENSE_AT;
+        the flush's candidate maximum at DENSE_AT (patched to the
+        fixture's candidates) then turns it dense, which is terminal '''
     seqs, codes, rl = _workload(5)
-    sc = _scanner(seqs, 4, 300, monkeypatch)
-    sc._gather_auto = True
+    passing = _plain(seqs, codes, rl)[0]
+    sc = _scanner(seqs, False, 300, monkeypatch)
+    sc.DENSE_AT = passing + 1
     with profiling.recording():
         sc.scan_batch(treader.RecordBatch(codes, rl, None, None))
-        assert sc.gather_k == sc.GATHER_BUCKETS[0]
-        assert sc._adapt_gather(LPAD, 10 ** 6)
-        assert sc.gather_k == 0
-        assert not sc._adapt_gather(LPAD, 10 ** 6)
+        assert not sc.dense
+        sc.DENSE_AT = passing
+        sc.finalize()
+        assert sc.dense
+        sc._observe(0)
+        assert sc.dense
         sc.scan_batch(treader.RecordBatch(codes, rl, None, None))
         sc.finalize()
         counts = profiling.collect()['counts']
-    assert counts['scan.adapted'] == 2
-    # one gathered step, then one dense step
+    assert set(counts) == {'scan.screened', 'scan.scored', 'scan.h2d_bytes'}
+    # one screened step, then one step scored whole
     assert counts['scan.screened'] == np.count_nonzero(rl)
-    assert counts['scan.scored'] == _plain(seqs, codes, rl)[0] + len(rl)
+    assert counts['scan.scored'] == passing + len(rl)
     assert counts['scan.h2d_bytes'] == 2 * (codes.nbytes + rl.nbytes)
 
 
 def test_nothing_is_recorded_outside_recording(monkeypatch):
     seqs, codes, rl = _workload(7)
-    for gather_k in (16, 0):
-        sc = _scanner(seqs, gather_k, 64, monkeypatch)
-        sc._gather_auto = True
+    for dense in (False, True):
+        sc = _scanner(seqs, dense, 64, monkeypatch)
         _scan(sc, codes, rl)
-        sc._adapt_gather(LPAD, 10 ** 6)
+        sc._observe(10 ** 6)
     assert profiling.collect() == {'spans': [], 'counts': {}}
 
 
 def test_copy_span_lies_inside_the_engine_scan_span(monkeypatch,
                                                    engine_config):
     ''' countseqs with no sieve (a 4-base seed at four mismatches) and
-        gather_k pinned below the fixture's reads: every step copies
-        inside ``engine.scan`` on the scan's thread '''
-    monkeypatch.setenv('KVARQ_GATHER_K', '4')
+        steps above 4 reads screened: every step copies inside
+        ``engine.scan`` on the scan's thread '''
+    monkeypatch.setattr(tts.TensorScanner, 'SCREEN_MIN_ROWS', 4)
     engine_config(maxerrors=MAXERRORS, minoverlap=20, minreadlength=10,
                   nthreads=1, Amin='!', Azero='!', device='cpu',
                   sieve='auto', batchsize=16384)

@@ -1,8 +1,8 @@
 '''
 kvarq_tpu_torch.engine.tensor_scan and countseqs against kvarq_tpu: the
-mode gating, the accumulating TensorScanner (dense, gathered, adaptive
-gather_k) and the engine's countseqs, checked against the JAX package
-and the numpy hit-path oracle.  Exact equality throughout.
+mode gating, the accumulating TensorScanner (dense, screened, and its
+screen-or-dense rule) and the engine's countseqs, checked against the JAX
+package and the numpy hit-path oracle.  Exact equality throughout.
 '''
 
 import os
@@ -88,24 +88,8 @@ def _scan(sc, fname=FASTQ, minreadlength=5):
     return sc
 
 
-@pytest.mark.parametrize('mode', ['dense', 'gathered', 'adaptive'])
-def test_tensor_scanner_matches_jax(mode, monkeypatch):
-    ''' the port's TensorScanner equals the JAX TensorScanner: dense
-        (assume_dense), pinned gathered mode on sub-batches, and auto mode
-        whose first-step candidate count grows gather_k '''
-    seqs = ['CACCGGTGTAGGCAAGTCGTAACAAGG', 'TTTTTTTTTTGGGGGGGGGG', 'CCC']
-    want = _scan(jts.TensorScanner(seqs, 1, 5))
-
-    sc = tts.TensorScanner(seqs, 1, 5, 'cpu')
-    if mode == 'dense':
-        sc.assume_dense()
-        assert sc.gather_k == 0
-    elif mode == 'gathered':
-        sc.gather_k, sc._gather_auto = 5, False
-        # two steps for the 14 reads
-        monkeypatch.setattr(tts, 'score_rows', lambda device, Qp: 7)
-    else:
-        sc.gather_k = 4                      # overflows on the first step
+def _counting_screen(monkeypatch):
+    ''' a list that gets one entry per candidate-screen call '''
     launches = []
     real = tps.cand_counts
 
@@ -113,6 +97,28 @@ def test_tensor_scanner_matches_jax(mode, monkeypatch):
         launches.append(1)
         return real(*args)
     monkeypatch.setattr(tps, 'cand_counts', counting)
+    return launches
+
+
+@pytest.mark.parametrize('mode', ['dense', 'gathered', 'adaptive'])
+def test_tensor_scanner_matches_jax(mode, monkeypatch):
+    ''' the port's TensorScanner equals the JAX TensorScanner: dense
+        (assume_dense), screened steps of 7 reads, and a first screened
+        step whose peek at the candidate count turns the scan dense '''
+    seqs = ['CACCGGTGTAGGCAAGTCGTAACAAGG', 'TTTTTTTTTTGGGGGGGGGG', 'CCC']
+    want = _scan(jts.TensorScanner(seqs, 1, 5))
+
+    sc = tts.TensorScanner(seqs, 1, 5, 'cpu')
+    if mode == 'dense':
+        sc.assume_dense()
+        assert sc.dense
+    else:
+        sc.SCREEN_MIN_ROWS = 5
+        # two steps for the 14 reads
+        monkeypatch.setattr(tts, 'score_rows', lambda device, Qp: 7)
+    if mode == 'adaptive':
+        sc.DENSE_AT = 1                      # the first step's count
+    launches = _counting_screen(monkeypatch)
     _scan(sc)
 
     for a, b in zip(want.coverages(), sc.coverages()):
@@ -120,9 +126,8 @@ def test_tensor_scanner_matches_jax(mode, monkeypatch):
     np.testing.assert_array_equal(want.seqhits, sc.seqhits)
     np.testing.assert_array_equal(want.seqbasehits, sc.seqbasehits)
     assert sc.seqhits.sum() > 0
-    assert bool(launches) == (mode != 'dense')
-    if mode == 'adaptive':
-        assert sc.gather_k in sc.GATHER_BUCKETS
+    assert len(launches) == {'dense': 0, 'gathered': 2, 'adaptive': 1}[mode]
+    assert sc.dense == (mode != 'gathered')
 
 
 def _workload(seed, sizes, planted, Lpad=64):
@@ -148,36 +153,88 @@ def _workload(seed, sizes, planted, Lpad=64):
     return seqs, out
 
 
+def _choices(sc, batches, monkeypatch):
+    ''' scan ``batches`` (one step each) and finalize: whether each batch
+        was screened '''
+    launches = _counting_screen(monkeypatch)
+    choices = []
+    for codes, rl in batches:
+        before = len(launches)
+        sc.scan_batch(treader.RecordBatch(codes, rl, None, None))
+        choices.append(len(launches) > before)
+    sc.finalize()
+    return choices
+
+
 @pytest.mark.parametrize('workload,sizes,planted,want', [
-    ('sparse', (600, 600, 300), 12, [768, 768, 768]),
-    ('hit-dense', (1500, 1500), 1000, [1536, 1536]),
-    ('dense', (7000, 7000), 6500, [0, 0]),
+    ('sparse', (600, 600, 300), 12, [False, False, False]),
+    ('hit-dense', (1500, 1500), 1000, [True, True]),
+    ('dense', (7000, 7000), 6500, [True, False]),
 ])
 def test_gather_k_trajectory_matches_jax(workload, sizes, planted, want,
                                          monkeypatch):
-    ''' auto gather_k follows kvarq_tpu's TensorScanner (Pallas backend
-        in interpret mode) batch for batch -- the first step's peek and
-        the flush's candidate maximum -- and the totals are equal; one
-        step per batch on both '''
+    ''' the port screens a batch iff it holds more than SCREEN_MIN_ROWS
+        reads and no candidate count has reached DENSE_AT (here the first
+        step's peek), batch for batch; its totals equal kvarq_tpu's
+        TensorScanner (Pallas backend in interpret mode, its own gather_k
+        ladder); one step per batch on both '''
     seqs, batches = _workload(len(workload), sizes, planted)
     monkeypatch.setattr(tts, 'score_rows', lambda device, Qp: 1 << 14)
     jsc = jts.TensorScanner(seqs, 1, 10, backend='pallas')
-    tsc = tts.TensorScanner(seqs, 1, 10, 'cpu')
-    assert jsc.gather_k == tsc.gather_k == 768
-    trajectory = []
     for codes, rl in batches:
         jsc.scan_batch(reader.RecordBatch(codes, rl, None, None))
-        tsc.scan_batch(treader.RecordBatch(codes, rl, None, None))
-        trajectory.append((jsc.gather_k, tsc.gather_k))
     jsc.finalize()
-    tsc.finalize()
-    assert trajectory == [(k, k) for k in want]
-    assert jsc.gather_k == tsc.gather_k
+    tsc = tts.TensorScanner(seqs, 1, 10, 'cpu')
+    assert (tsc.SCREEN_MIN_ROWS, tsc.DENSE_AT) == (768, 5488)
+    assert _choices(tsc, batches, monkeypatch) == want
+    assert tsc.dense == (workload == 'dense')
     for a, b in zip(jsc.coverages(), tsc.coverages()):
         np.testing.assert_array_equal(a.astype(np.int64), b)
     np.testing.assert_array_equal(jsc.seqhits, tsc.seqhits)
     np.testing.assert_array_equal(jsc.seqbasehits, tsc.seqbasehits)
     assert tsc.seqhits.sum() >= planted
+
+
+@pytest.mark.parametrize('edge,n,want', [
+    ('rows', 768, [False]),
+    ('rows', 769, [True]),
+    ('flush', 5487, [True, True, True]),
+    ('flush', 5488, [True, True, False]),
+])
+def test_screen_rule_edges(edge, n, want, monkeypatch):
+    ''' the edges of the rule at its real constants: a step of 768 reads
+        is scored whole and one of 769 screened; a flush maximum of 5,487
+        candidates keeps the scan screening and one of 5,488 turns it
+        dense (an 800-read batch, then ``n`` planted reads, all
+        candidates, flushed, then 800 reads).  The coverage and the
+        per-template counts equal the plain scoring of every row. '''
+    seed = 11
+    monkeypatch.setattr(tts, 'score_rows', lambda device, Qp: 1 << 14)
+    if edge == 'rows':
+        seqs, batches = _workload(seed, (n,), 12)
+    else:
+        seqs, (first, last) = _workload(seed, (800, 800), 12)
+        _, planted = _workload(seed, (n,), n)
+        batches = [first] + planted + [last]
+    sc = tts.TensorScanner(seqs, 1, 10, 'cpu')
+    sc.FLUSH_STEPS = 2
+    seen = []
+    observe = sc._observe
+    monkeypatch.setattr(sc, '_observe', lambda c: seen.append(c) or
+                        observe(c))
+    assert _choices(sc, batches, monkeypatch) == want
+    if edge == 'flush':
+        # the peek at the first step, then the flush after the second
+        assert seen[0] < n == seen[1]
+        assert sc.dense == (n >= sc.DENSE_AT)
+    plain = tts.TensorScanner(seqs, 1, 10, 'cpu')
+    plain.assume_dense()
+    assert _choices(plain, batches, monkeypatch) == [False] * len(batches)
+    for a, b in zip(plain.coverages(), sc.coverages()):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(plain.seqhits, sc.seqhits)
+    np.testing.assert_array_equal(plain.seqbasehits, sc.seqbasehits)
+    assert sc.seqhits.sum() >= 12
 
 
 def test_score_rows_on_the_cpu():
@@ -190,26 +247,34 @@ def test_score_rows_on_the_cpu():
 
 
 def test_adapt_gather_keeps_contexts():
-    ''' a gather_k change mid-scan flushes but keeps every Lpad context, so
-        coverages() after the switch stays exact (mirror of the JAX
-        package's test_adapt_gather_rebuilds_in_place) '''
+    ''' the switch to dense mid-scan keeps every Lpad context and its
+        accumulators, so coverages() after it stays exact: the fixture
+        screened, then scored whole, counts twice the hit path's '''
     seqs = ['CACCGGTGTAGGCAAGTCGTAACAAGG', 'CCC']
     jengine.config(maxerrors=1, minoverlap=5, minreadlength=5, Amin='!',
                    nthreads=1)
     ref_bcs, _ = _hitpath_basecounts(FASTQ, seqs)
 
-    sc = _scan(tts.TensorScanner(seqs, 1, 5, 'cpu'))
+    sc = tts.TensorScanner(seqs, 1, 5, 'cpu')
+    sc.SCREEN_MIN_ROWS = 4
+    stats = reader.ReaderStats()
+    batches = list(reader.batches([FASTQ], ord('!'), 5, stats))
+    for batch in batches:
+        sc.scan_batch(batch)
     (lpad,) = sc._ctx.keys()
-    sc._gather_auto, sc.gather_k = True, 768
-    assert not sc._adapt_gather(lpad, 500)
-    assert sc._adapt_gather(lpad, 900)
-    assert sc.gather_k == 1536
-    assert sc._adapt_gather(lpad, 16000)
-    assert sc.gather_k == 0
-    assert not sc._adapt_gather(lpad, 16000)        # dense is terminal
-    assert lpad in sc._ctx
+    ctx = sc._ctx[lpad]
+    assert not sc.dense and ctx['acc'] is not None
+    sc._observe(sc.DENSE_AT - 1)
+    assert not sc.dense
+    sc._observe(sc.DENSE_AT)
+    assert sc.dense
+    sc._observe(0)
+    assert sc.dense                                 # dense is terminal
+    assert sc._ctx == {lpad: ctx} and ctx['acc'] is not None
+    for batch in batches:
+        sc.scan_batch(batch)
     for r, g in zip(ref_bcs, sc.coverages()):
-        np.testing.assert_array_equal(r, g)
+        np.testing.assert_array_equal(2 * r, g)
 
 
 @pytest.mark.parametrize('sieve', ['auto', 'off'])
@@ -221,9 +286,12 @@ def test_adapt_gather_keeps_contexts():
 def test_countseqs_matches_jax_and_oracle(maxerrors, minoverlap,
                                           minreadlength, Amin, sieve,
                                           monkeypatch):
-    ''' unsieved scans pin gather_k below the fixture's 14 reads, so they
+    ''' unsieved scans screen steps above 4 reads (and the JAX package's
+        scans pin their gather_k below the fixture's 14 reads), so they
         run the candidate screen '''
+    launches = _counting_screen(monkeypatch)
     if sieve == 'off':
+        monkeypatch.setattr(tts.TensorScanner, 'SCREEN_MIN_ROWS', 4)
         monkeypatch.setenv('KVARQ_GATHER_K', '4')
     seqs = PLUS + [_revcomp(s) for s in PLUS]
     params = dict(maxerrors=maxerrors, minoverlap=minoverlap,
@@ -241,6 +309,7 @@ def test_countseqs_matches_jax_and_oracle(maxerrors, minoverlap,
         np.testing.assert_array_equal(r, g)
         np.testing.assert_array_equal(j, g)
     assert ret['stats'] == ref_stats == jret['stats']
+    assert bool(launches) == (sieve == 'off')
     assert tengine.stats() == ret['stats']
     assert tengine.get_config() == jengine.get_config()
 
