@@ -30,7 +30,9 @@
 // truncated file, which ends the stream silently with the bytes decoded
 // so far, exactly like the zlib ring loop's Z_BUF_ERROR-at-EOF path.
 // Multi-member concatenation and error message strings mirror the zlib
-// path (reader.cpp ring_zlib_main; reference workhorse.c:841-866).
+// path (reader.cpp ring_zlib_main; reference workhorse.c:841-866); with
+// stop_at_member a call returns at each member's end, where the reader's
+// member pool may take over (reader.cpp serve_members).
 
 #ifndef KVQ_FAST_INFLATE_H
 #define KVQ_FAST_INFLATE_H
@@ -385,6 +387,9 @@ struct Decoder {
 
     uint64_t member_out = 0;      // bytes produced in the current member
     uint32_t crc = 0xFFFFFFFFu;
+    // return at the end of each member (phase PH_HEADER, the cursor on
+    // the next member's first byte) instead of decoding on into the next
+    bool stop_at_member = false;
 
     uint32_t lit_table[LIT_TABLE_SIZE];
     uint32_t dist_table[DIST_TABLE_SIZE];
@@ -402,6 +407,16 @@ struct Decoder {
     }
 
     size_t byte_pos() const { return (size_t)(p - in) - (size_t)(cnt >> 3); }
+
+    // go on at byte `off`, where a member starts: a member's window starts
+    // empty, so nothing decoded before it is needed
+    void restart_at(size_t off) {
+        p = in + off;
+        buf = 0;
+        cnt = 0;
+        phase = PH_HEADER;
+        msg = nullptr;
+    }
 };
 
 inline const uint8_t* in_end(const Decoder* d) { return d->in + d->in_size; }
@@ -916,6 +931,7 @@ inline long decode_some(Decoder* d, uint8_t* out, size_t out_cap,
                 return (long)pos;
             }
             d->phase = PH_HEADER;        // maybe another member
+            if (d->stop_at_member) return (long)pos;
             break;
         }
 

@@ -138,6 +138,10 @@ struct Stream {
     // opened before it became current (open_ahead); its ring may run past
     // the usual bound until then
     bool ahead = false;
+    // the reader's member pool and this stream's lane in it, where the
+    // ring producer decodes a mapped file (ring_fast_main)
+    struct MemberPool* pool = nullptr;
+    struct MemberLane* lane = nullptr;
 };
 
 bool has_gz_suffix(const std::string& fname) {
@@ -484,12 +488,16 @@ struct Reader {
     uint64_t prof_tick0 = 0;
     int64_t prof_ns0 = 0;
 
-    // the bytes a stream opened ahead may queue before it becomes current
-    // (-1: MemAvailable / 12 at the first such open, kvq_set_ahead_budget
-    // otherwise), and the decompressed bytes such streams had queued when
-    // they became current
+    // the bytes that streams opened ahead and the member pool's members
+    // may hold together (-1 until ahead_budget takes MemAvailable / 12 at
+    // the first use, or kvq_set_ahead_budget sets it), and the
+    // decompressed bytes such streams had decoded when they became current
     int64_t ahead_budget = -1;
     std::atomic<int64_t> ahead_bytes{0};
+
+    // decodes the members of mapped multi-member gzip streams in parallel
+    // (member_pool), shared by all of them; made at the first such stream
+    struct MemberPool* pool = nullptr;
 };
 
 void update_total(Reader* r) {
@@ -510,23 +518,482 @@ static int64_t mem_available_bytes() {
     return kb > 0 ? (int64_t)kb * 1024 : -1;
 }
 
+// ---- member-parallel inflate --------------------------------------------
+//
+// A multi-member gzip file (parallel compressors, `cat` of lane files) is a
+// chain of members.  Each member's window starts empty, so decoding it does
+// not depend on the members before it; only where it starts does.  The
+// pool scans a mapped file's bytes ahead of the decoders for member
+// headers and decodes whole members from those candidate starts, each into
+// chunks of its own.  The stream's ring producer is the chain's head: it
+// decodes as before, and where a member ends at compressed offset e it
+// serves the member the pool decoded from e, if there is one, and goes on
+// from that member's end (serve_members).  A start the chain never reaches
+// is a false one, dropped unseen; a start whose decode failed is decoded
+// again in order.  So the bytes served are the serial decoder's, and
+// errors, truncation and trailing garbage are met only in order, by the
+// head.  A file of one member never finds a second start, and its head
+// runs alone.
+//
+// Memory: one budget, the reader's ahead budget, holds the pool's members,
+// from the start of their decode until the head has queued them, and every
+// byte a stream opened ahead has queued (its head's own and the members it
+// moved into its ring) until it becomes current.  A member starts only
+// while its reservation (the ISIZE before the next candidate) fits, and a
+// decode that passes its reservation grows it only while that fits too,
+// else gives the member up to the head's serial decode; ISIZE is mod 2^32,
+// so it is a hint and this growth the bound.  Where the pool holds nothing,
+// one member of up to a ring's usual bound (RingDecode::MAX_BYTES) fits
+// whatever the budget, so a small budget still decodes one member beyond
+// the head.  Besides the budget, the pool keeps up to SPARE_MAX spare
+// chunk buffers (64 MB) for its decoders to fill again.
+
+struct MemberJob {
+    size_t start = 0;
+    size_t end = 0;                // where the next member starts, once OK
+    int64_t resv = 0;              // what it holds of the budget
+    std::atomic<int64_t> bytes{0}; // decoded so far
+    std::atomic<bool> cancel{false};
+    enum { RUNNING, OK, FAILED } state = RUNNING;
+    std::deque<std::vector<uint8_t>> chunks;
+};
+
+struct MemberLane {
+    const Stream* s = nullptr;
+    size_t head = 0;               // start of the member the chain is in
+    size_t scanned = 1;            // the scan's cursor (0 is the head's)
+    bool scanning = false;
+    bool scan_done = false;
+    bool closed = false;
+    bool ahead = false;            // the stream is opened ahead of its turn
+    int64_t charged = 0;           // its ring's bytes in held, while ahead
+    int64_t inhand = 0;            // of a member the head serves, not queued
+    std::deque<size_t> cands;      // candidate starts not taken, ascending
+    std::map<size_t, MemberJob*> jobs;   // taken, by start
+};
+
+struct MemberPool {
+    std::mutex m;
+    std::condition_variable cv_work, cv_done;
+    std::vector<std::thread> thrs;
+    std::vector<MemberLane*> lanes;      // in the streams' order
+    int64_t budget = 0;
+    int64_t held = 0;
+    int running = 0;
+    bool stop = false;
+    // kvq_prof: members the chains passed through, those served from the
+    // pool, and the decompressed bytes of false or unused starts
+    std::atomic<int64_t> members{0};
+    std::atomic<int64_t> members_parallel{0};
+    std::atomic<int64_t> dropped{0};
+    // full-size chunk buffers the consumer is done with, for the decoders
+    // to fill again: a chunk is freed on another thread than the one that
+    // made it, and the allocator would keep each decode thread's freed
+    // chunks apart, resident (guarded by spare_m, taken with no other lock
+    // or inside a ring's)
+    std::mutex spare_m;
+    std::vector<std::vector<uint8_t>> spare;
+    static constexpr size_t SPARE_MAX = 64;
+    static constexpr size_t SCAN_PIECE = 4u << 20;
+};
+
+constexpr size_t FAST_WIN = 1u << 15;   // the decoders' window
+constexpr size_t FAST_CH = 1u << 20;    // and chunk
+
+// a chunk holding src[0..n), in a spare buffer where there is one
+std::vector<uint8_t> new_chunk(MemberPool* pool, const uint8_t* src,
+                               size_t n) {
+    if (n < FAST_CH / 2)   // a member's short last chunk: its own size
+        return std::vector<uint8_t>(src, src + n);
+    std::vector<uint8_t> ch;
+    {
+        std::lock_guard<std::mutex> l(pool->spare_m);
+        if (!pool->spare.empty()) {
+            ch = std::move(pool->spare.back());
+            pool->spare.pop_back();
+        }
+    }
+    ch.reserve(FAST_CH);
+    ch.assign(src, src + n);
+    return ch;
+}
+
+// a chunk the consumer is done with
+void spare_chunk(MemberPool* pool, std::vector<uint8_t>&& ch) {
+    if (ch.capacity() < FAST_CH) return;
+    std::lock_guard<std::mutex> l(pool->spare_m);
+    if (pool->spare.size() < MemberPool::SPARE_MAX)
+        pool->spare.push_back(std::move(ch));
+}
+
+// could a gzip member start at b[0]?  The magic and deflate, no reserved
+// flag bits, an XFL and an OS byte that gzip writes, and header fields
+// that end inside the input; a member needs at least 20 bytes
+bool gz_header_at(const uint8_t* b, size_t avail) {
+    if (avail < 20 || b[0] != 0x1f || b[1] != 0x8b || b[2] != 8)
+        return false;
+    const uint8_t flg = b[3];
+    if ((flg & 0xE0) || (b[8] != 0 && b[8] != 2 && b[8] != 4)
+            || (b[9] > 13 && b[9] != 255))
+        return false;
+    size_t q = 10;
+    if (flg & 4) {
+        q += 2 + (size_t)(b[10] | (b[11] << 8));
+        if (q > avail) return false;
+    }
+    for (int f = 8; f <= 16; f <<= 1) {   // FNAME, FCOMMENT
+        if (!(flg & f)) continue;
+        const void* z = q < avail ? std::memchr(b + q, 0, avail - q)
+                                  : nullptr;
+        if (!z) return false;
+        q = (size_t)((const uint8_t*)z - b) + 1;
+    }
+    if (flg & 2) q += 2;
+    return q + 10 <= avail;
+}
+
+// the candidate starts in [from, to) of the mapping, appended in order
+void scan_members(const uint8_t* map, size_t size, size_t from, size_t to,
+                  std::deque<size_t>* out) {
+    for (size_t i = from; i < to; i++) {
+        const void* hit = std::memchr(map + i, 0x1f, to - i);
+        if (!hit) break;
+        i = (size_t)((const uint8_t*)hit - map);
+        if (gz_header_at(map + i, size - i)) out->push_back(i);
+    }
+}
+
+// the reservation for a member from `c` to the candidate `next`: the ISIZE
+// before `next`, never above DEFLATE's largest ratio over the span
+int64_t member_hint(const uint8_t* map, size_t c, size_t next) {
+    if (next < c + 20) return 0;
+    const uint8_t* t = map + next - 4;
+    const int64_t isize = (int64_t)t[0] | ((int64_t)t[1] << 8)
+                        | ((int64_t)t[2] << 16) | ((int64_t)t[3] << 24);
+    const int64_t most = (int64_t)(next - c) * 1032;
+    return isize < most ? isize : most;
+}
+
+// may the budget take `add` bytes more?  Under m
+bool pool_fits(const MemberPool* pool, int64_t add) {
+    return pool->held + add <= pool->budget
+        || (pool->held == 0 && add <= (int64_t)RingDecode::MAX_BYTES);
+}
+
+// drop a job's bytes from the budget and count them as dropped; under m
+void drop_job(MemberPool* pool, MemberJob* job) {
+    pool->held -= job->resv;
+    pool->dropped += job->bytes.load();
+    delete job;
+}
+
+// what a pool thread does next, under m: a job started (*job, in the lane
+// returned), a lane to scan (*scan), or nothing (nullptr).  Lanes go in
+// the streams' order and candidates in file order; a candidate is taken
+// once the next one is known, and only while the budget allows
+MemberLane* pick_member(MemberPool* pool, MemberJob** job,
+                        MemberLane** scan) {
+    for (MemberLane* ln : pool->lanes) {
+        if (ln->closed) continue;
+        while (!ln->cands.empty() && ln->cands.front() <= ln->head)
+            ln->cands.pop_front();
+        if (ln->cands.size() < 2 && !ln->scan_done) {
+            if (ln->scanning) continue;
+            *scan = ln;
+            return ln;
+        }
+        if (ln->cands.empty()) continue;
+        const size_t c = ln->cands[0];
+        const size_t next = ln->cands.size() > 1 ? ln->cands[1]
+                                                 : ln->s->map_size;
+        const int64_t hint = member_hint(ln->s->map, c, next);
+        if (!pool_fits(pool, hint))
+            return nullptr;
+        MemberJob* j = new MemberJob();
+        j->start = c;
+        j->resv = hint;
+        ln->jobs[c] = j;
+        ln->cands.pop_front();
+        pool->held += hint;
+        pool->running++;
+        *job = j;
+        return ln;
+    }
+    return nullptr;
+}
+
+// decode the member that may start at job->start into its chunks; true
+// where it ended with a good trailer, job->end then the byte after it;
+// false where it failed, was cancelled or outgrew what the budget allows.
+// Runs outside m: the job is the calling thread's until it ends
+bool decode_member(MemberPool* pool, const Stream* s, MemberJob* job,
+                   kvq_fast::Decoder* d, std::vector<uint8_t>& buf) {
+    d->init(s->map, s->map_size);
+    d->restart_at(job->start);
+    d->stop_at_member = true;
+    size_t hist = 0;
+    for (;;) {
+        if (job->cancel.load(std::memory_order_relaxed)) return false;
+        const long n = kvq_fast::decode_some(d, buf.data() + FAST_WIN,
+                                             FAST_CH, hist);
+        if (n < 0) return false;
+        if (n > 0) {
+            job->chunks.push_back(
+                new_chunk(pool, buf.data() + FAST_WIN, (size_t)n));
+            size_t keep = (size_t)n + hist;
+            if (keep > FAST_WIN) keep = FAST_WIN;
+            std::memmove(buf.data() + FAST_WIN - keep,
+                         buf.data() + FAST_WIN + (size_t)n - keep, keep);
+            hist = keep;
+            const int64_t b = job->bytes.load() + n;
+            job->bytes.store(b);
+            if (b > job->resv) {   // more than its ISIZE said
+                std::lock_guard<std::mutex> l(pool->m);
+                pool->held -= job->resv;
+                const bool fits = pool_fits(pool, b);
+                pool->held += fits ? b : job->resv;
+                if (!fits) return false;
+                job->resv = b;
+            }
+        }
+        if (d->phase == kvq_fast::PH_HEADER) {
+            job->end = d->byte_pos();
+            return true;
+        }
+        if (d->phase != kvq_fast::PH_HUF && d->phase != kvq_fast::PH_STORED
+                && d->phase != kvq_fast::PH_BLOCK)
+            return false;
+    }
+}
+
+void pool_main(MemberPool* pool) {
+    kvq_fast::Decoder* d = new kvq_fast::Decoder();
+    std::vector<uint8_t> buf(FAST_WIN + FAST_CH);
+    std::unique_lock<std::mutex> l(pool->m);
+    while (!pool->stop) {
+        MemberJob* job = nullptr;
+        MemberLane* scan = nullptr;
+        MemberLane* ln = pick_member(pool, &job, &scan);
+        if (!ln) {
+            pool->cv_work.wait(l);
+            continue;
+        }
+        const Stream* s = ln->s;
+        if (scan) {
+            const size_t from = ln->scanned;
+            const size_t to = s->map_size - from > MemberPool::SCAN_PIECE
+                ? from + MemberPool::SCAN_PIECE : s->map_size;
+            ln->scanning = true;
+            l.unlock();
+            const uint64_t t0 = s->inflate_ticks ? prof_now() : 0;
+            std::deque<size_t> found;
+            scan_members(s->map, s->map_size, from, to, &found);
+            prof_add(s->inflate_ticks, t0);
+            l.lock();
+            ln->scanning = false;
+            ln->scanned = to;
+            ln->scan_done = to == s->map_size;
+            ln->cands.insert(ln->cands.end(), found.begin(), found.end());
+            pool->cv_work.notify_all();
+            continue;
+        }
+        l.unlock();
+        const uint64_t t0 = s->inflate_ticks ? prof_now() : 0;
+        const bool ok = decode_member(pool, s, job, d, buf);
+        prof_add(s->inflate_ticks, t0);
+        l.lock();
+        pool->running--;
+        if (job->cancel) {
+            drop_job(pool, job);   // the head passed it; no lane holds it
+        } else if (!ok) {
+            job->state = MemberJob::FAILED;
+            pool->held -= job->resv;
+            pool->dropped += job->bytes.exchange(0);
+            job->resv = 0;
+            job->chunks.clear();
+        } else {
+            job->state = MemberJob::OK;
+            pool->held -= job->resv - job->bytes.load();
+            job->resv = job->bytes.load();
+        }
+        pool->cv_done.notify_all();
+        pool->cv_work.notify_all();
+    }
+    delete d;
+}
+
+// a stream's lane, served after the lanes of earlier streams: streams
+// open in their order (the current one, then the next ahead)
+MemberLane* pool_register(MemberPool* pool, const Stream* s, bool ahead) {
+    MemberLane* ln = new MemberLane();
+    ln->s = s;
+    ln->ahead = ahead;
+    std::lock_guard<std::mutex> l(pool->m);
+    pool->lanes.push_back(ln);
+    pool->cv_work.notify_all();
+    return ln;
+}
+
+// the stream is closed: its jobs are dropped (a running one when it sees
+// its cancel), and a head waiting on one wakes
+void pool_release(MemberPool* pool, MemberLane* ln) {
+    std::lock_guard<std::mutex> l(pool->m);
+    ln->closed = true;
+    pool->held -= ln->charged;
+    ln->charged = 0;
+    for (auto& kv : ln->jobs) {
+        if (kv.second->state == MemberJob::RUNNING)
+            kv.second->cancel = true;
+        else
+            drop_job(pool, kv.second);
+    }
+    ln->jobs.clear();
+    pool->cv_done.notify_all();
+    pool->cv_work.notify_all();
+}
+
+// the lane's stream, opened ahead, becomes current: its ring's bytes
+// leave the budget.  Returns the decompressed bytes the pool holds for
+// the lane, decoded by its threads or in the head's hand
+int64_t pool_enter(MemberPool* pool, MemberLane* ln) {
+    int64_t n;
+    {
+        std::lock_guard<std::mutex> l(pool->m);
+        ln->ahead = false;
+        pool->held -= ln->charged;
+        ln->charged = 0;
+        n = ln->inhand;
+        for (auto& kv : ln->jobs) n += kv.second->bytes.load();
+    }
+    pool->cv_done.notify_all();
+    pool->cv_work.notify_all();
+    return n;
+}
+
+// the head of a stream opened ahead is to queue `n` bytes of its own
+// decode: they take their share of the budget, waiting while it is full
+// (until the stream becomes current or is closed)
+void pool_charge(MemberPool* pool, MemberLane* ln, int64_t n) {
+    std::unique_lock<std::mutex> l(pool->m);
+    pool->cv_done.wait(l, [&] {
+        return ln->closed || !ln->ahead || pool_fits(pool, n);
+    });
+    if (ln->closed || !ln->ahead) return;
+    pool->held += n;
+    ln->charged += n;
+}
+
+// the head is at a member boundary, compressed offset e: the jobs before e
+// were false starts and are dropped; no job starts at e from now on.
+// Returns the pool's member from e once decoded (waiting while it is
+// decoded), taken out of the lane, or nullptr where the head decodes from
+// e itself: no job there, its decode failed, or the stream was closed
+MemberJob* take_member(MemberPool* pool, MemberLane* ln, size_t e) {
+    std::unique_lock<std::mutex> l(pool->m);
+    ln->head = e;
+    for (auto it = ln->jobs.begin(); it != ln->jobs.end()
+            && it->first < e; it = ln->jobs.erase(it)) {
+        if (it->second->state == MemberJob::RUNNING)
+            it->second->cancel = true;
+        else
+            drop_job(pool, it->second);
+    }
+    pool->cv_done.notify_all();
+    for (;;) {
+        auto it = ln->jobs.find(e);
+        if (ln->closed || it == ln->jobs.end()) return nullptr;
+        MemberJob* job = it->second;
+        if (job->state == MemberJob::RUNNING) {
+            pool->cv_done.wait(l);
+            continue;
+        }
+        ln->jobs.erase(it);
+        if (job->state == MemberJob::FAILED) {
+            delete job;
+            return nullptr;
+        }
+        ln->inhand = job->bytes.load();
+        return job;
+    }
+}
+
+// chunk bytes the head has queued (or, with `drop`, given up) of the
+// member in its hand: they leave the budget, unless queued in the ring of
+// a stream opened ahead, which holds them on
+void pool_served(MemberPool* pool, MemberLane* ln, int64_t n, bool drop) {
+    {
+        std::lock_guard<std::mutex> l(pool->m);
+        ln->inhand -= n;
+        if (ln->ahead && !drop && !ln->closed)
+            ln->charged += n;
+        else
+            pool->held -= n;
+        if (drop) pool->dropped += n;
+    }
+    pool->cv_done.notify_all();
+    pool->cv_work.notify_all();
+}
+
+// at a member's end, compressed offset e: queue the pool's members along
+// the chain from e while it has them (see take_member); *next is where the
+// head's own decode goes on.  False where the ring was abandoned
+bool serve_members(Stream* s, size_t e, size_t* next) {
+    RingDecode* rd = s->ring;
+    MemberPool* pool = s->pool;
+    for (;;) {
+        MemberJob* job = take_member(pool, s->lane, e);
+        if (!job) {
+            *next = e;
+            return true;
+        }
+        const int64_t n = job->bytes.load();
+        for (auto& ch : job->chunks) {
+            const int64_t sz = (int64_t)ch.size();
+            std::unique_lock<std::mutex> l(rd->m);
+            rd->cv_space.wait(l, [&] {
+                return rd->abandon || rd->qbytes < rd->limit;
+            });
+            if (rd->abandon) {
+                l.unlock();
+                pool_served(pool, s->lane, s->lane->inhand, true);
+                delete job;
+                return false;
+            }
+            rd->qbytes += (size_t)sz;
+            rd->q.push_back(std::move(ch));
+            l.unlock();
+            rd->cv_data.notify_all();
+            pool_served(pool, s->lane, sz, false);
+        }
+        __atomic_store_n(&s->compressed_read, (int64_t)job->end,
+                         __ATOMIC_RELAXED);
+        __atomic_fetch_add(&s->decoded, n, __ATOMIC_RELAXED);
+        pool->members++;
+        pool->members_parallel++;
+        e = job->end;
+        delete job;
+    }
+}
+
 // fast-inflate variant of the ring producer: decodes straight off the
 // stream's mmap'd compressed file (kvq_fast_inflate.h, ~2x zlib) with a
 // 32 KB window kept contiguous before the chunk area.  Same queue
 // protocol, same multi-member / silent-truncation / error-message
-// semantics as the zlib loop below.
+// semantics as the zlib loop below.  It is the head of the member chain:
+// at each member's end it serves what the member pool decoded from there
+// (serve_members) and goes on where that ends.
 #ifdef KVARQ_HAVE_MMAP
 void ring_fast_main(Stream* s) {
     RingDecode* rd = s->ring;
     kvq_fast::Decoder* d = new kvq_fast::Decoder();
     d->init(s->map, s->map_size);
-    constexpr size_t WIN = 1u << 15;
-    constexpr size_t CH = 1u << 20;
-    std::vector<uint8_t> buf(WIN + CH);
+    d->stop_at_member = true;
+    std::vector<uint8_t> buf(FAST_WIN + FAST_CH);
     size_t hist = 0;
     for (;;) {
         const uint64_t t0 = s->inflate_ticks ? prof_now() : 0;
-        long n = kvq_fast::decode_some(d, buf.data() + WIN, CH, hist);
+        long n = kvq_fast::decode_some(d, buf.data() + FAST_WIN, FAST_CH,
+                                       hist);
         std::string err;
         bool at_end = false;
         if (n < 0) {
@@ -549,14 +1016,15 @@ void ring_fast_main(Stream* s) {
         }
         std::vector<uint8_t> out;
         if (n > 0) {
-            out.assign(buf.begin() + WIN, buf.begin() + WIN + n);
+            out = new_chunk(s->pool, buf.data() + FAST_WIN, (size_t)n);
             size_t keep = (size_t)n + hist;
-            if (keep > WIN) keep = WIN;
-            std::memmove(buf.data() + WIN - keep,
-                         buf.data() + WIN + (size_t)n - keep, keep);
+            if (keep > FAST_WIN) keep = FAST_WIN;
+            std::memmove(buf.data() + FAST_WIN - keep,
+                         buf.data() + FAST_WIN + (size_t)n - keep, keep);
             hist = keep;
         }
         prof_add(s->inflate_ticks, t0);
+        if (n > 0) pool_charge(s->pool, s->lane, n);
         std::unique_lock<std::mutex> l(rd->m);
         rd->cv_space.wait(l, [&] {
             return rd->abandon || rd->qbytes < rd->limit;
@@ -582,6 +1050,16 @@ void ring_fast_main(Stream* s) {
         if (finished) {
             delete d;
             return;
+        }
+        if (d->phase == kvq_fast::PH_HEADER) {   // a member ended here
+            s->pool->members++;
+            size_t next = 0;
+            if (!serve_members(s, d->byte_pos(), &next)) {
+                delete d;
+                return;
+            }
+            d->restart_at(next);
+            hist = 0;
         }
     }
 }
@@ -667,14 +1145,58 @@ void ring_zlib_main(Stream* s) {
     }
 }
 
-// open s for reading and start its decoder, chosen from the input alone:
-// a BGZF file (libdeflate builds) gets the parallel block pool, any other
-// gzip input one ring producer -- ring_fast_main on a mapped file,
-// ring_zlib_main otherwise.  `ahead_limit` > 0 opens a stream ahead of its
-// turn (open_ahead): a ring whose queue may hold that many bytes, with no
-// BGZF pool
-bool open_stream(Stream& s, std::string* err, int nthreads,
+// the bytes that decoding ahead may hold: the streams opened ahead of their
+// turn and the member pool's members together -- MemAvailable / 12 at the
+// first use, at least one ring's usual bound, unless kvq_set_ahead_budget
+// set it
+int64_t ahead_budget(Reader* r) {
+    if (r->ahead_budget < 0) {
+        const int64_t mem = mem_available_bytes();
+        r->ahead_budget = mem > 0 ? mem / 12 : 0;
+        if (r->ahead_budget < (int64_t)RingDecode::MAX_BYTES)
+            r->ahead_budget = (int64_t)RingDecode::MAX_BYTES;
+    }
+    return r->ahead_budget;
+}
+
+// the reader's member pool, started at the first call: as many threads as
+// the BGZF pool takes
+MemberPool* member_pool(Reader* r) {
+    if (!r->pool) {
+        r->pool = new MemberPool();
+        r->pool->budget = ahead_budget(r);
+        const int nthr = r->nthreads < 8 ? r->nthreads : 8;
+        for (int i = 0; i < nthr; i++)
+            r->pool->thrs.emplace_back(pool_main, r->pool);
+    }
+    return r->pool;
+}
+
+// stop the member pool's threads and free it, once every stream is closed
+void stop_member_pool(Reader* r) {
+    MemberPool* pool = r->pool;
+    if (!pool) return;
+    {
+        std::lock_guard<std::mutex> l(pool->m);
+        pool->stop = true;
+    }
+    pool->cv_work.notify_all();
+    for (auto& t : pool->thrs) t.join();
+    for (MemberLane* ln : pool->lanes) delete ln;
+    delete pool;
+    r->pool = nullptr;
+}
+
+// open stream `si` for reading and start its decoder, chosen from the input
+// alone: a BGZF file (libdeflate builds) gets the parallel block pool, any
+// other gzip input one ring producer -- ring_fast_main on a mapped file,
+// with a lane in the member pool, ring_zlib_main otherwise.  `ahead_limit`
+// > 0 opens a stream ahead of its turn (open_ahead): a ring whose queue may
+// hold that many bytes, with no BGZF pool
+bool open_stream(Reader* r, size_t si, std::string* err,
                  size_t ahead_limit = 0) {
+    Stream& s = r->streams[si];
+    const int nthreads = r->nthreads;
     s.f = std::fopen(s.fname.c_str(), "rb");
     if (!s.f) {
         *err = "cannot open '" + s.fname + "'";
@@ -766,9 +1288,11 @@ bool open_stream(Stream& s, std::string* err, int nthreads,
             s.ahead = true;
         }
 #ifdef KVARQ_HAVE_MMAP
-        if (s.map)
+        if (s.map) {
+            s.pool = member_pool(r);
+            s.lane = pool_register(s.pool, &s, s.ahead);
             s.ring->thr = std::thread(ring_fast_main, &s);
-        else
+        } else
 #endif
             s.ring->thr = std::thread(ring_zlib_main, &s);
     }
@@ -783,9 +1307,11 @@ void close_stream(Stream& s) {
         }
         s.ring->cv_space.notify_all();
         s.ring->cv_data.notify_all();
+        if (s.lane) pool_release(s.pool, s.lane);
         if (s.ring->thr.joinable()) s.ring->thr.join();
         delete s.ring;
         s.ring = nullptr;
+        s.lane = nullptr;
     }
     if (s.bgzf) {
         {
@@ -809,7 +1335,8 @@ void close_stream(Stream& s) {
 // inflate at the same time, each on its own thread, and no byte is decoded
 // twice.  Only where both are regular gzip files and the next is not BGZF
 // (whose block pool decodes in parallel already).  Its ring may queue up
-// to the ahead budget until it becomes current (enter_stream).  A stream
+// to the ahead budget until it becomes current (enter_stream); a mapped
+// one shares that budget with the member pool's members.  A stream
 // that cannot be opened here is left to be opened, and to fail with its
 // usual message, when it becomes current.
 void open_ahead(Reader* r) {
@@ -830,15 +1357,8 @@ void open_ahead(Reader* r) {
     if (bgzf_probe(s.fname, (int64_t)st.st_size, &blocks, &total))
         return;
 #endif
-    if (r->ahead_budget < 0) {
-        // a twelfth of the free memory, at least one ring's usual bound
-        const int64_t mem = mem_available_bytes();
-        r->ahead_budget = mem > 0 ? mem / 12 : 0;
-        if (r->ahead_budget < (int64_t)RingDecode::MAX_BYTES)
-            r->ahead_budget = (int64_t)RingDecode::MAX_BYTES;
-    }
     std::string err;
-    if (open_stream(s, &err, r->nthreads, (size_t)r->ahead_budget))
+    if (open_stream(r, i, &err, (size_t)ahead_budget(r)))
         return;
     // half opened (inflateInit failed): closed again, to be reopened
     close_stream(s);
@@ -851,17 +1371,19 @@ void open_ahead(Reader* r) {
 }
 
 // make the current stream ready to read: open it, or, where it was opened
-// ahead, count the bytes it decoded before the consumer reached it and
-// return its ring to the usual bound; then open the next one ahead.
-// Returns false with r->error set when the stream cannot be opened.
+// ahead, count the bytes it decoded before the consumer reached it (its
+// ring's and the member pool's) and return its ring to the usual bound;
+// then open the next one ahead.  Returns false with r->error set when the
+// stream cannot be opened.
 bool enter_stream(Reader* r) {
     Stream& s = r->streams[r->cur_stream];
     if (s.ahead) {
+        if (s.lane) r->ahead_bytes += pool_enter(s.pool, s.lane);
         std::lock_guard<std::mutex> l(s.ring->m);
         r->ahead_bytes += (int64_t)s.ring->qbytes;
         s.ring->limit = RingDecode::MAX_BYTES;
         s.ahead = false;
-    } else if (!open_stream(s, &r->error, r->nthreads)) {
+    } else if (!open_stream(r, r->cur_stream, &r->error)) {
         return false;
     }
     open_ahead(r);
@@ -885,6 +1407,7 @@ long ring_read(Stream& s, uint8_t* out, size_t want, std::string* err) {
             rd->front_off += n;
             if (rd->front_off == front.size()) {
                 rd->qbytes -= front.size();
+                if (s.pool) spare_chunk(s.pool, std::move(front));
                 rd->q.pop_front();
                 rd->front_off = 0;
                 rd->cv_space.notify_all();
@@ -2234,9 +2757,9 @@ void kvq_stats(Reader* r, int64_t* records_parsed, int64_t* parsed,
     if (rls) std::memcpy(rls, r->rls, sizeof(r->rls));
 }
 
-// the bytes a gzip stream opened ahead of its turn may queue until it
-// becomes current, in place of MemAvailable / 12.  Call before the first
-// kvq_next.
+// the bytes that gzip streams opened ahead of their turn, until they
+// become current, and the member pool's members may hold together, in
+// place of MemAvailable / 12.  Call before the first kvq_next.
 void kvq_set_ahead_budget(Reader* r, long bytes) {
     r->ahead_budget = bytes > 0 ? bytes : 1;
 }
@@ -2250,13 +2773,16 @@ void kvq_set_prof(Reader* r) {
     for (auto& s : r->streams) s.inflate_ticks = &r->prof_inflate;
 }
 
-// out[0..5]: nanoseconds in the sieve, summed over the threads that
-// parse; nanoseconds the decode threads were busy; the records parsed;
-// the reads delivered (those that passed the sieve); the decompressed
-// bytes of following streams decoded before the consumer reached them
-// (open_ahead); nanoseconds kvq_next waited for the workers' next item
-// in order (0 with one thread).  The three times are 0 unless the
-// profile is on; call from the thread that calls kvq_next.
+// out[0..8]: nanoseconds in the sieve, summed over the threads that
+// parse; nanoseconds the decode threads were busy, the member pool's
+// included; the records parsed; the reads delivered (those that passed
+// the sieve); the decompressed bytes of following streams decoded before
+// the consumer reached them (open_ahead); nanoseconds kvq_next waited for
+// the workers' next item in order (0 with one thread); the gzip members
+// the chains of mapped streams passed through, those of them served by
+// the member pool, and the decompressed bytes of the pool's false or
+// unused starts.  The three times are 0 unless the profile is on; call
+// from the thread that calls kvq_next.
 void kvq_prof(Reader* r, int64_t* out) {
     const uint64_t dt = prof_now() - r->prof_tick0;
     const double ns_per_tick =
@@ -2267,6 +2793,9 @@ void kvq_prof(Reader* r, int64_t* out) {
     out[3] = r->survivors;
     out[4] = r->ahead_bytes.load();
     out[5] = (int64_t)((double)r->prof_wait * ns_per_tick);
+    out[6] = r->pool ? r->pool->members.load() : 0;
+    out[7] = r->pool ? r->pool->members_parallel.load() : 0;
+    out[8] = r->pool ? r->pool->dropped.load() : 0;
 }
 
 static long take_inline(Reader* r, long cap, long lmax, int32_t* rl_out,
@@ -2386,9 +2915,10 @@ void kvq_close(Reader* r) {
     for (auto& kv : r->completed) delete kv.second;
     delete r->cur;
     for (auto& s : r->streams) close_stream(s);
+    stop_member_pool(r);
 #ifdef KVARQ_HAVE_MMAP
     // unmap LAST: in-flight WorkItems borrow spans from the mappings,
-    // and the workers holding them were joined above
+    // and the workers holding them and the member pool were joined above
     for (auto& s : r->streams)
         if (s.map) {
             ::munmap((void*)s.map, s.map_size);

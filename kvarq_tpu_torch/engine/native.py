@@ -40,7 +40,8 @@ MAX_READLENGTH = reader.MAX_READLENGTH
 # the counters of kvq_prof, in its order, as the scan records them
 PROF_COUNTERS = ('reader.sieve_ns', 'reader.inflate_ns', 'reader.records',
                  'reader.survivors', 'reader.ahead_bytes',
-                 'reader.consumer_wait_ns')
+                 'reader.consumer_wait_ns', 'reader.members',
+                 'reader.members_parallel', 'reader.spec_dropped_bytes')
 
 
 def _cpu_supports_v3():
@@ -62,13 +63,17 @@ _lib_failed = False
 
 
 def _src_hash():
-    ''' sha256 of the C++ source, embedded into the library at build time
-        (kvq_src_hash) and compared at load -- mtimes are useless for
-        staleness on fresh checkouts, where a shipped prebuilt .so and the
-        source get near-identical checkout-time mtimes '''
+    ''' sha256 of the C++ source and the headers it includes, embedded into
+        the library at build time (kvq_src_hash) and compared at load --
+        mtimes are useless for staleness on fresh checkouts, where a shipped
+        prebuilt .so and the source get near-identical checkout-time
+        mtimes '''
     import hashlib
-    with open(SRC, 'rb') as fd:
-        return hashlib.sha256(fd.read()).hexdigest()[:16]
+    digest = hashlib.sha256()
+    for name in ('reader.cpp', 'kvq_inflate.h', 'kvq_fast_inflate.h'):
+        with open(os.path.join(os.path.dirname(SRC), name), 'rb') as fd:
+            digest.update(fd.read())
+    return digest.hexdigest()[:16]
 
 
 def _load_if_current(lib_path, want_hash):

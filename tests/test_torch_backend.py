@@ -41,6 +41,7 @@ from kvarq_tpu_torch import engine as tengine
 from kvarq_tpu_torch.engine import reader as treader
 from kvarq_tpu_torch.tools import gz_bench, hitdiff
 
+from _torch_log import restore_log_levels  # noqa: F401
 from test_engine import FNAME, FNAME_1, FNAME_2, SEQS7
 
 HERE = os.path.abspath(os.path.dirname(__file__))

@@ -27,6 +27,8 @@ from kvarq_tpu_torch import testsuites as ttestsuites
 from kvarq_tpu_torch.engine import tensor_scan as tts
 from kvarq_tpu_torch.fastq import Fastq as TFastq
 
+from _torch_log import restore_log_levels  # noqa: F401
+
 HERE = os.path.abspath(os.path.dirname(__file__))
 ROOT = os.path.dirname(HERE)
 TESTSUITES = os.path.join(ROOT, 'testsuites')

@@ -35,6 +35,7 @@ from kvarq_tpu_torch.engine import match_pallas, match_xla
 from kvarq_tpu_torch.engine import pallas_scan as tps
 
 from _torch_cases import case
+from _torch_log import restore_log_levels  # noqa: F401
 from test_engine import FNAME, FNAME_1, FNAME_2, SEQS7, FastqGenerator
 
 HERE = os.path.abspath(os.path.dirname(__file__))

@@ -28,6 +28,8 @@ from kvarq_tpu_torch import cli, parallel
 from kvarq_tpu_torch import engine as tengine
 from kvarq_tpu_torch.parallel import multihost
 
+from _torch_log import restore_log_levels  # noqa: F401
+
 HERE = os.path.abspath(os.path.dirname(__file__))
 ROOT = os.path.dirname(HERE)
 TESTSUITES = os.path.join(ROOT, 'testsuites')

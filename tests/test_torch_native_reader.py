@@ -4,14 +4,16 @@ The port's native reader hands the engine finished rows
 at the batch's width, with the reads' bytes or without them.  Held against
 the JAX package's numpy reader, batch by batch and field by field; the
 coverage scan at -e 4, which asks for no bytes, against the JAX package's
-scan; and the host memory of a gzip scan whose sieve passes nothing, which
-holds no more than the reader's windows.  CPU only.
+scan; the host memory of a gzip scan whose sieve passes nothing, which
+holds no more than the reader's windows; and the gzip member pool's hold on
+memory, within the reader's ahead budget.  CPU only.
 '''
 
 import gzip
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from kvarq_tpu.engine import reader as jreader
 from kvarq_tpu.engine.encode import CODE_READ_JUNK
 from kvarq_tpu.engine.sieve import KmerSieve as JKmerSieve
 from kvarq_tpu_torch import engine as tengine
+from kvarq_tpu_torch import profiling
 from kvarq_tpu_torch.engine import native, reader, tensor_scan
 from kvarq_tpu_torch.engine.sieve import KmerSieve
 
@@ -243,3 +246,158 @@ def test_sieved_gzip_scan_holds_no_sample(tmp_path):
     n, grown = map(int, out.stdout.split())
     assert n == 0
     assert grown * 1024 < size // 2, (grown, size)
+
+
+# DRAIN with the reader's ahead budget set (kvq_set_ahead_budget) to
+# sys.argv[3] bytes where that is not 0; prints the reads passed, the
+# records parsed and the growth of the resident set over the drain, in kB
+DRAIN_BUDGET = '''
+import sys
+from kvarq_tpu_torch.engine import native, reader
+from kvarq_tpu_torch.engine.sieve import KmerSieve
+
+def status(key):
+    with open('/proc/self/status') as fd:
+        return next(int(line.split()[1]) for line in fd
+                    if line.startswith(key + ':'))
+
+lib = native.get_lib()
+budget = int(sys.argv[3])
+kvq_open = lib.kvq_open
+
+def open_with_budget(*args):
+    h = kvq_open(*args)
+    if budget:
+        lib.kvq_set_ahead_budget(h, budget)
+    return h
+lib.kvq_open = open_with_budget
+sieve = KmerSieve.build([sys.argv[2]], 2, 25, 25)
+stats = reader.ReaderStats()
+before = status('VmRSS')
+n = sum(len(b) for b in native.batches(
+    [sys.argv[1]], 46, 25, stats, 16384, sieve=sieve,
+    nthreads=4, raw=False))
+print(n, stats.records_parsed, status('VmHWM') - before)
+'''
+
+
+def test_member_pool_holds_its_budget(tmp_path):
+    ''' a gzip sample of 128 MB of FastQ in members of 8 MB, read with an
+        ahead budget of one byte: the member pool still decodes it to the
+        end, one member at a time beyond the head, and the reader's
+        resident set grows by no more than the same sample's as a single
+        member (the usual ring and windows) plus one member, and 32 MB for
+        the allocator and the threads' timing, which move that growth by
+        as much from run to run.  Without a budget the pool decodes the
+        sample ahead, and the growth passes the single member's by 80 to
+        140 MB '''
+    rec = b'@r\n%s\n+\n%s\n' % (b'A' * 101, b'I' * 101)
+    data = rec * ((4 << 20) // len(rec)) * 32
+    member = 8 << 20
+    grown = {}
+    for name, size in (('single', len(data)), ('members', member)):
+        path = str(tmp_path / ('%s.fastq.gz' % name))
+        with open(path, 'wb') as fd:
+            for lo in range(0, len(data), size):
+                fd.write(gzip.compress(data[lo:lo + size], compresslevel=1))
+        out = subprocess.run(
+            [sys.executable, '-c', DRAIN_BUDGET, path, TEMPLATE,
+             '1' if name == 'members' else '0'], cwd=ROOT,
+            capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr
+        n, records, grown[name] = map(int, out.stdout.split())
+        assert n == 0
+        assert records == len(data) // len(rec)
+    assert grown['members'] * 1024 \
+        <= grown['single'] * 1024 + member + (32 << 20), grown
+
+
+def _polya(mb):
+    ''' ``mb`` MB of FastQ records of 101 A's '''
+    rec = b'@r\n%s\n+\n%s\n' % (b'A' * 101, b'I' * 101)
+    return rec * ((mb << 20) // len(rec))
+
+
+@pytest.mark.parametrize('kind', ['large', 'understated'])
+def test_member_pool_bounds_a_large_member(tmp_path, kind):
+    ''' members of 128 MB, four times the one member that the pool decodes
+        beyond the head whatever the budget (a ring's usual 32 MB), read
+        with an ahead budget of one byte.  ``large``: two such members,
+        whose ISIZE the pool reads, so it leaves the second to the head.
+        ``understated``: a stored member of 128 MB between two of 8 MB,
+        whose first record's header holds four zero bytes and a gzip
+        header: the pool takes the zeros for the member's ISIZE, starts it
+        and gives it up to the head once it passes 32 MB.  Either way the
+        resident set grows by no more than the same bytes' as one member,
+        plus the one member beyond the head and 32 MB for the allocator
+        and the threads' timing.  Were the pool to decode the large member
+        whole, it would grow by 128 MB more '''
+    big = _polya(128)
+    if kind == 'large':
+        parts = [(big, 1), (big, 1)]
+    else:
+        small = _polya(8)
+        fake = b'@\0\0\0\0\x1f\x8b\x08\0\0\0\0\0\0\xff%s\n%s\n+\n%s\n' % (
+            b'x' * 16, b'A' * 101, b'I' * 101)
+        parts = [(small, 1), (fake + big, 0), (small, 1)]
+    plain = b''.join(data for data, _ in parts)
+    members = [gzip.compress(data, compresslevel=level)
+               for data, level in parts]
+    assert kind == 'large' or b'\0\0\0\0\x1f\x8b\x08' in members[1]
+    grown = {}
+    for name in ('single', 'members'):
+        path = str(tmp_path / ('%s.fastq.gz' % name))
+        with open(path, 'wb') as fd:
+            if name == 'members':
+                fd.write(b''.join(members))
+            else:   # at the members' level, so the two map as much
+                fd.write(gzip.compress(plain, compresslevel=parts[1][1]))
+        out = subprocess.run(
+            [sys.executable, '-c', DRAIN_BUDGET, path, TEMPLATE, '1'],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr
+        n, records, grown[name] = map(int, out.stdout.split())
+        assert n == 0
+        assert records == plain.count(b'\n+\n')
+    assert grown['members'] * 1024 \
+        <= grown['single'] * 1024 + (32 << 20) + (32 << 20), grown
+
+
+def test_member_pool_shares_the_ahead_budget(tmp_path, monkeypatch):
+    ''' a paired run of two multi-member mates, 8 MB and 128 MB in members
+        of 1 and 4 MB, read with an ahead budget of 48 MB, whose consumer
+        rests after its first batch, so that everything the reader may
+        decode ahead is decoded: the second mate's bytes decoded before it
+        became current, its ring's and the pool's members together
+        (``reader.ahead_bytes``), stay within the one budget, plus a chunk
+        of 1 MB for each of the pool's four threads.  With a budget apiece
+        they came to about twice it '''
+    budget = 48 << 20
+    lib = native.get_lib()
+    kvq_open = lib.kvq_open
+
+    def open_with_budget(*args):
+        h = kvq_open(*args)
+        lib.kvq_set_ahead_budget(h, budget)
+        return h
+    monkeypatch.setattr(lib, 'kvq_open', open_with_budget)
+    paths, want = [], 0
+    for i, (mb, member) in enumerate(((8, 1), (128, 4))):
+        data = _polya(mb)
+        want += data.count(b'\n+\n')
+        paths.append(str(tmp_path / ('reads_%d.fastq.gz' % (i + 1))))
+        with open(paths[-1], 'wb') as fd:
+            for lo in range(0, len(data), member << 20):
+                fd.write(gzip.compress(data[lo:lo + (member << 20)],
+                                       compresslevel=1))
+    records = 0
+    with profiling.recording():
+        for b in native.batches(paths, 46, 25, reader.ReaderStats(), 16384,
+                                nthreads=4, raw=False):
+            if not records:
+                time.sleep(3)
+            records += len(b)
+        counts = profiling.collect()['counts']
+    assert records == want
+    assert counts['reader.members_parallel'] > 0
+    assert 0 < counts['reader.ahead_bytes'] <= budget + (4 << 20), counts

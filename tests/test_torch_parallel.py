@@ -27,6 +27,8 @@ from kvarq_tpu_torch import engine as tengine
 from kvarq_tpu_torch.engine import pallas_scan as tps
 from kvarq_tpu_torch.engine.tensor_scan import TensorScanner
 
+from _torch_log import restore_log_levels  # noqa: F401
+
 HERE = os.path.abspath(os.path.dirname(__file__))
 ROOT = os.path.dirname(HERE)
 TESTSUITES = os.path.join(ROOT, 'testsuites')

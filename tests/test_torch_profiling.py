@@ -24,6 +24,8 @@ from kvarq_tpu_torch import testsuites as ttestsuites
 from kvarq_tpu_torch.engine import native, reader
 from kvarq_tpu_torch.engine.sieve import KmerSieve
 
+from _torch_log import restore_log_levels  # noqa: F401
+
 HERE = os.path.abspath(os.path.dirname(__file__))
 TESTSUITES = os.path.join(os.path.dirname(HERE), 'testsuites')
 FASTQ = os.path.join(HERE, 'fastqs', 'L3_N1014_hits_5k.fastq')
@@ -185,9 +187,13 @@ def test_native_reader_profile_changes_no_batch(tmp_path, gz, nthreads):
     got = np.zeros(len(native.PROF_COUNTERS), np.int64)
     lib.kvq_prof(h, got)
     lib.kvq_close(h)
+    # a gzip file of one member: the chain passes through it alone
     assert list(got) == [0, 0, counts['reader.records'],
-                         counts['reader.survivors'], 0, 0]
+                         counts['reader.survivors'], 0, 0, int(gz), 0, 0]
     assert counts['reader.ahead_bytes'] == 0
+    assert counts['reader.members'] == int(gz)
+    assert counts['reader.members_parallel'] == 0
+    assert counts['reader.spec_dropped_bytes'] == 0
 
 
 @pytest.mark.parametrize('nthreads', [1, 4])

@@ -28,6 +28,8 @@ from kvarq_tpu.engine import tensor_scan as jts
 from kvarq_tpu.engine.reader import RecordBatch
 from kvarq_tpu_torch import bench as tbench
 from kvarq_tpu_torch import parallel as tparallel
+
+from _torch_log import restore_log_levels  # noqa: F401
 from kvarq_tpu_torch.engine import encode as tencode
 from kvarq_tpu_torch.engine import match_numpy as tmatch_numpy
 from kvarq_tpu_torch.engine import pallas_scan as tps
