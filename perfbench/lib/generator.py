@@ -12,6 +12,13 @@ The model, all of it named in the configuration's ``reads`` and ``model``:
 - single reads: a start uniform over the strain, either strand;
   pairs: a fragment of normal length (``fragment``), clipped, read from
   both ends inward, either strand;
+- a panel (``reads.panel``, optional): amplicons ``[start, stop]``,
+  1-based and inclusive in the genome's coordinates (the strain has
+  substitutions only). A read or pair comes from one amplicon, picked
+  with chance proportional to its length (an equimolar pool,
+  fragmented), and lies wholly inside it: a pair's fragment is clipped
+  to the amplicon's length too. A share ``reads.off_target`` (default 0)
+  of reads or pairs is drawn over the whole strain as without a panel;
 - sequencing errors: each base at ``error_rate`` replaced by another;
 - qualities: copied from real reads of an instrument (``qualities``, one
   quality line a line, frozen from the repository's FastQ fixtures): a
@@ -144,22 +151,38 @@ def _records(ids, seq, qual, name, mate):
     return out.tobytes()
 
 
-def _block(g, reads, model, quals, seq_seed, lo, hi, name):
+def _regions(rng, n, size, panel, off_target):
+    ''' per read or pair, the first base and the length of the stretch
+        it lies in: the whole strain without a panel; else the amplicon
+        drawn for it, or the whole strain for the ``off_target`` share '''
+    if panel is None:
+        return 0, size
+    first, lens = panel
+    pick = np.searchsorted(np.cumsum(lens), rng.random(n) * lens.sum(),
+                           'right')
+    off = rng.random(n) < off_target
+    return (np.where(off, 0, first[pick]), np.where(off, size, lens[pick]))
+
+
+def _block(g, reads, model, quals, seq_seed, lo, hi, name, panel=None):
     ''' the FastQ bytes of reads (or pairs) lo..hi, one entry per file '''
     rng = np.random.Generator(np.random.PCG64(seq_seed))
     n = hi - lo
     length = reads['read_length']
     ids = np.arange(lo, hi, dtype=np.int64)
     minus = rng.random(n) < 0.5
+    first, span = _regions(rng, n, len(g), panel,
+                           reads.get('off_target', 0))
     if reads['layout'] == 'single':
-        starts = rng.integers(0, len(g) - length + 1, n)
+        starts = first + rng.integers(0, span - length + 1, n)
         mates = [_reads(g, starts, minus, length)]
         suffixes = ['']
     else:
         f = reads['fragment']
-        frag = np.clip(np.rint(rng.normal(f['mean'], f['sd'], n)),
-                       max(length, f['min']), f['max']).astype(np.int64)
-        starts = rng.integers(0, len(g) - frag + 1)
+        frag = np.rint(rng.normal(f['mean'], f['sd'], n))
+        frag = np.minimum(np.maximum(frag, max(length, f['min'])),
+                          np.minimum(f['max'], span)).astype(np.int64)
+        starts = first + rng.integers(0, span - frag + 1)
         head = _reads(g, starts, np.zeros(n, bool), length)
         end = _reads(g, starts + frag - length, np.ones(n, bool), length)
         # mates read inward from both ends; a fragment of the minus
@@ -171,6 +194,40 @@ def _block(g, reads, model, quals, seq_seed, lo, hi, name):
     for seq, mate in zip(mates, suffixes):
         _errors(seq, model['error_rate'], rng)
         out.append(_records(ids, seq, quals.draw(n, rng), name, mate))
+    return out
+
+
+def panel_arrays(reads, size):
+    ''' (0-based first bases, lengths) of ``reads['panel']``, None
+        without one; an amplicon outside the genome of ``size`` bases, or
+        shorter than a read, is an error that names it '''
+    if reads.get('panel') is None:
+        return None
+    first, lens = [], []
+    for k, (start, stop) in enumerate(reads['panel']):
+        if not 1 <= start <= stop <= size:
+            raise ValueError('amplicon %d [%d, %d] is not inside the genome '
+                             'of %d bases' % (k, start, stop, size))
+        if stop - start + 1 < reads['read_length']:
+            raise ValueError('amplicon %d [%d, %d] is shorter than a read '
+                             '(%d bases)' % (k, start, stop,
+                                             reads['read_length']))
+        first.append(start - 1)
+        lens.append(stop - start + 1)
+    return np.array(first, np.int64), np.array(lens, np.int64)
+
+
+def panel_around(spans, flank):
+    ''' amplicons ``[start, stop]`` around ``spans`` (1-based, inclusive):
+        each widened by ``flank`` bases on both sides, merged where they
+        overlap or touch '''
+    out = []
+    for a, b in sorted(spans):
+        a, b = a - flank, b + flank
+        if out and a <= out[-1][1] + 1:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
     return out
 
 
@@ -214,9 +271,11 @@ def make_sample(genome_codes, group, config, seed, index, outdir,
     bounds = [(lo, min(total, lo + BLOCK)) for lo in range(0, total, BLOCK)]
     seqs = read_seq.spawn(len(bounds))
     level = reads.get('gzip_level')
+    panel = panel_arrays(reads, len(g))
 
     def work(k):
-        blocks = _block(g, reads, model, quals, seqs[k], *bounds[k], name)
+        blocks = _block(g, reads, model, quals, seqs[k], *bounds[k], name,
+                        panel)
         if reads['compression'] == 'gzip':
             blocks = [gzip.compress(b, compresslevel=level, mtime=0)
                       for b in blocks]

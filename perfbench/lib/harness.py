@@ -89,6 +89,7 @@ class Run:
         self.started = time.perf_counter() if started is None else started
         self.scans = []          # (sample, out path, start, end, exit code)
         self.tr = None
+        self.window_tr = None    # the window's device activity, if traced
         self.program = None      # the traced samples' spans and counters
         self.torch = None
         self.dir = None
@@ -162,9 +163,17 @@ class Run:
 
     # --- the window -----------------------------------------------------------
 
-    def window(self):
+    def window(self, profiled=False):
+        ''' the measured window; ``profiled``: under torch.profiler's
+            device activity alone, reduced to ``window_tr`` (for an
+            end-to-end metric read from the device's trace) '''
         first = len(self.scans)
         n = len(self.samples)
+        prof = None
+        if profiled:
+            from torch.profiler import ProfilerActivity, profile
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.start()
         t0 = time.perf_counter()
         i = 0
         # every sample at least once, then until the window's length
@@ -179,6 +188,16 @@ class Run:
             torch = self.torch
             self.memory_peak = max(torch.cuda.max_memory_allocated(d)
                                    for d in range(self.cell['chips']))
+        if prof is not None:
+            t1 = time.perf_counter()
+            self.torch.cuda.synchronize()
+            prof.stop()
+            # the profiler's own events, with no trace file written
+            self.window_tr = trace.device_activity(
+                prof.profiler.kineto_results.events())
+            del prof
+            self.say(window_trace_s=time.perf_counter() - t1,
+                     window_device_ops=len(self.window_tr['device']))
 
     def traced_samples(self):
         ''' a few more samples under torch.profiler, each in a span of its
@@ -230,7 +249,8 @@ class Run:
         device = 'cuda' if self.card else 'cpu'
         want = [check.Expected(p, self.config, self.group, device)
                 .result(hits) for p in self.samples]
-        self.say(reference_s=time.perf_counter() - t0)
+        reference_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
         total = dict.fromkeys(check.FIELDS, 0)
         failed = 0
         self.scantimes = {}
@@ -244,6 +264,8 @@ class Run:
             failed += any(diff.values())
             for key, v in diff.items():
                 total[key] += v
+        # the reference's results, then loading and comparing every scan's
+        self.say(reference_s=reference_s, check_s=time.perf_counter() - t0)
         return total, failed
 
     def record(self):
@@ -257,6 +279,7 @@ class Run:
                        'scantime_s': self.scantimes.get(out), 'rc': rc}
                       for k, out, a, b, rc in self.window_scans],
             'trace': self.tr,
+            'window_trace': self.window_tr,
             'program': self.program,
         }
 
@@ -274,9 +297,15 @@ def execute(root, bench, cell_name, seed, seconds, traced, card=True,
     config = config or spec.config(cell['config'])
     traffic = traffic or spec.traffic(cell['traffic'])
     run = Run(root, cell, config, traffic, seed, seconds, card, started)
+    # the window runs under the profiler only where an end-to-end metric
+    # of the cell is read from the device's trace, and never in a traced
+    # run, whose window the per-layer metrics read on the host's clock
+    profiled = card and not traced and any(
+        m['source'] == 'device_trace'
+        for m in spec.metrics(bench, cell_name, False))
     try:
         run.setup()
-        run.window()
+        run.window(profiled)
         if traced and card:
             run.traced_samples()
         diffs, failed = run.check()

@@ -61,6 +61,19 @@ def kernel_ms(record):
             / trace.samples(tr) / 1e3)
 
 
+def card_kernel_ms(record):
+    ''' device time of the kernels a sample over the whole window: every
+        kernel the window's scans launched, from the profiler's trace of
+        the window's device activity, over the window's samples '''
+    tr = record.get('window_trace')
+    if tr is None or not record['scans']:
+        return None
+    us = sum(e - s for _, cat, s, e in tr['device'] if cat == 'kernel')
+    if not us:
+        return None
+    return us / len(record['scans']) / 1e3
+
+
 def device_idle_pct(record):
     ''' the share of the traced samples' window (from the first traced
         sample's start to the last one's end) in which no kernel, copy or

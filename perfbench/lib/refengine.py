@@ -34,7 +34,11 @@ NL, AT, PLUS = 10, ord('@'), ord('+')
 _CODE = np.full(256, 4, np.uint8)
 for _i, _c in enumerate(b'ACGT'):
     _CODE[_c] = _i
-_COMPL = {'A': 'T', 'C': 'G', 'G': 'C', 'T': 'A', 'N': 'N'}
+# a read byte as the plus strand reads it where a minus-strand template
+# met it: A, C, G and T complemented, every other byte as it is
+_COMPL_BYTE = np.arange(256, dtype=np.uint8)
+for _a, _b in zip(b'ACGT', b'TGCA'):
+    _COMPL_BYTE[_a] = _b
 
 
 def read_stream(paths):
@@ -61,7 +65,7 @@ class Records:
         rec0 = np.concatenate([[0], nl[:-1, 3] + 1]) if n else nl[:, 0]
         if n and ((arr[rec0] != AT).any() or (arr[nl[:, 1] + 1] != PLUS).any()):
             raise ValueError('not a FastQ stream of four-line records')
-        self.arr = arr
+        self.buf, self.arr = buf, arr
         self.n = n
         rl = np.zeros(n, np.int64)
         off = np.zeros(n, np.int64)
@@ -88,9 +92,12 @@ class Records:
         out[~inside] = 4
         return out
 
-    def read(self, r, start, length):
-        p = int(self.pos[r]) + start
-        return self.arr[p:p + length].tobytes().decode('latin-1')
+    def reads(self, r, start, length):
+        ''' the bases of each kept read ``r[k]`` from ``start[k]`` on, for
+            ``length[k]`` bases, as text '''
+        buf = self.buf
+        return [buf[p:p + n].decode('latin-1') for p, n in
+                zip((self.pos[r] + start).tolist(), length.tolist())]
 
 
 def _trim(arr, qs, qe, amin):
@@ -299,41 +306,73 @@ class Coverage:
                 / len(self.coverage)) ** .5
 
 
-def coverages(rec, tpl, hits, windows, hit_order):
+def coverages(rec, tpl, hits, windows, hit_order, chunk=1 << 15):
     ''' ``{window name: Coverage}`` from ``hits`` over ``windows`` (the
         plus strands, in order; minus-strand templates follow them). With
         ``hit_order`` the alternates are kept in the order the hits meet
-        them, else by position '''
+        them, else by position.
+
+        Depth: each hit's stretch on the plus strand, added up as
+        differences in one array of every window. Alternates: the hits'
+        read bases against their templates', ``chunk`` hits at a time,
+        each differing base kept with its window, plus-strand position
+        and base (complemented on the minus strand), hit by hit and base
+        by base; the counts, each position's first sighting and each
+        base's within it follow from that order. '''
     names = list(windows)
     nwin = len(names)
     cov = {n: Coverage(w.plus, w.start, w.stop) for n, w in windows.items()}
-    depth = [np.zeros(len(w.plus), np.int64) for w in windows.values()]
-    alt = []
-    for h, (r, t, d, length) in enumerate(hits.tolist()):
-        seq = tpl.seqs[t]
-        s = max(0, -d)
-        read = rec.read(r, s, length)
-        j0 = max(0, d)
-        w = t % nwin
-        plus = t < nwin
-        S = len(seq)
-        if plus:
-            depth[w][j0:j0 + length] += 1
-        else:
-            depth[w][S - j0 - length:S - j0] += 1
-        for i, (x, y) in enumerate(zip(read, seq[j0:j0 + length])):
-            if x != y:
-                j = j0 + i
-                alt.append((h, i, w, j if plus else S - 1 - j,
-                            x if plus else _COMPL.get(x, x)))
-    for w, n in enumerate(names):
-        cov[n].coverage = [int(x) for x in depth[w]]
+    r, t, d, length = (hits[:, k].astype(np.int64) for k in range(4))
+    w = t % nwin
+    plus = t < nwin
+    S = tpl.lens[t]
+    j0 = np.maximum(0, d)
+    lens = np.array([len(x.plus) for x in windows.values()], np.int64)
+    # a window's depths and one slot past it, where its differences end
+    off = np.concatenate([[0], np.cumsum(lens + 1)])
+    first = off[w] + np.where(plus, j0, S - j0 - length)
+    depth = np.cumsum(np.bincount(first, minlength=off[-1])
+                      - np.bincount(first + length, minlength=off[-1]))
+    for k, n in enumerate(names):
+        cov[n].coverage = depth[off[k]:off[k] + lens[k]].tolist()
+    # each hit's read bases and template codes as a row of the longest
+    # hit's width, cut from the stream and the templates (padded past
+    # their ends, where the mask drops the bases)
+    width = int(length.max()) if len(hits) else 0
+    at = rec.pos[r] + np.maximum(0, -d)
+    stream = rec.arr
+    if len(hits) and int(at.max()) + width > len(stream):
+        stream = np.concatenate([stream, np.zeros(width, np.uint8)])
+    reads = np.lib.stride_tricks.sliding_window_view(stream, width)
+    codes = np.lib.stride_tricks.sliding_window_view(
+        np.concatenate([tpl.codes, np.full(width, 4, np.uint8)]), width)
+    cols = np.arange(width)
+    parts = []
+    for a in range(0, len(hits), chunk):
+        c = slice(a, a + chunk)
+        inside = cols < length[c, None]
+        x = reads[at[c]]
+        y = codes[tpl.base[t[c]] + j0[c]]
+        h, i = np.nonzero((_CODE[x] != y) & inside)
+        base = x[h, i]
+        h += a
+        j = j0[h] + i
+        parts.append(np.stack([w[h], np.where(plus[h], j, S[h] - 1 - j),
+                               np.where(plus[h], base, _COMPL_BYTE[base])],
+                              axis=1))
+    alt = np.concatenate(parts) if parts else np.zeros((0, 3), np.int64)
     if not hit_order:
-        alt.sort(key=lambda a: (a[2], a[3]))
-    for _, _, w, j, base in alt:
-        c = cov[names[w]]
+        alt = alt[np.lexsort((alt[:, 1], alt[:, 0]))]
+    # (window, position, base) once each, in the order first met
+    key = (alt[:, 0] * (int(tpl.lens.max()) + 1) + alt[:, 1]) * 256 \
+        + alt[:, 2]
+    _, seen, counts = np.unique(key, return_index=True, return_counts=True)
+    order = np.argsort(seen)
+    for (wk, j, base), n in zip(alt[seen[order]].tolist(),
+                                counts[order].tolist()):
+        c = cov[names[wk]]
         if j not in c.mutations:
             c.mutations[j] = {}
             c.mutation_order.append(j)
-        c.mutations[j][base] = c.mutations[j].get(base, 0) + 1
+        c.mutations[j][chr(base)] = n
     return cov

@@ -39,6 +39,26 @@ def reduce(path):
             'base_ns': int(data.get('baseTimeNanoseconds', 0))}
 
 
+def device_activity(events):
+    ''' ``{'spans': [], 'device': [(name, cat, start, end)], 'base_ns':
+        0}``, as :py:func:`reduce` gives, from the profiler's events
+        (``kineto_results.events()``) with no trace file: the events on
+        the device, in microseconds, named copies and fills as the
+        trace's export names them and every other one a kernel '''
+    from torch.autograd import DeviceType
+    device = []
+    for e in events:
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        name = e.name()
+        cat = ('gpu_memcpy' if name.startswith('Memcpy') else
+               'gpu_memset' if name.startswith('Memset') else 'kernel')
+        start = e.start_ns() / 1e3
+        device.append((name, cat, start, start + e.duration_ns() / 1e3))
+    device.sort(key=lambda d: d[2])
+    return {'spans': [], 'device': device, 'base_ns': 0}
+
+
 def window(tr):
     ''' (start, end) of the traced samples, None without any '''
     samples = [s for s in tr['spans'] if s[0].startswith('perfbench.sample')]

@@ -73,6 +73,9 @@ def test_trace_reduction(canned):
 @pytest.mark.parametrize('name,want', [
     ('cov_reads_per_s', 3 * 1000 / 2.0),
     ('hit_reads_per_s', 3 * 1000 / 2.0),
+    ('wall_reads_per_s.card', 3 * 1000 / 2.0),
+    ('cli_ms.card', 200.0),
+    ('engine_ms.card', 400.0),
     ('setup_s', 12.5),
     ('cli_ms.cov', 200.0),
     ('cli_ms.hit', 200.0),
@@ -101,7 +104,7 @@ def test_cells_report_only_their_paths_layer_metrics(cell, suffix, other,
     assert not [n for n in names if n.endswith(other)]
 
 
-@pytest.mark.parametrize('suffix', ['cov', 'hit'])
+@pytest.mark.parametrize('suffix', ['cov', 'hit', 'card'])
 def test_trace_readers(canned, suffix):
     rec = record(canned)
     # 40 us of kernels over two samples
@@ -111,13 +114,79 @@ def test_trace_readers(canned, suffix):
 
 
 @pytest.mark.parametrize('name', ['kernel_ms.cov', 'device_idle_pct.cov',
-                                  'kernel_ms.hit', 'device_idle_pct.hit'])
+                                  'kernel_ms.hit', 'device_idle_pct.hit',
+                                  'kernel_ms.card', 'device_idle_pct.card',
+                                  'card_kernel_ms'])
 def test_trace_readers_without_a_trace_read_nothing(name):
     assert spec.reader(name)(record()) is None
 
 
+def test_card_kernel_ms_reads_every_kernel_of_the_window(canned):
+    # the window's trace has no sample spans: every kernel counts, over
+    # the window's three scans; copies and host ops do not
+    rec = record()
+    rec['window_trace'] = canned
+    assert spec.reader('card_kernel_ms')(rec) == \
+        pytest.approx((10 + 10 + 40) / 3 / 1e3)
+    rec['scans'] = []
+    assert spec.reader('card_kernel_ms')(rec) is None
+    rec = record()
+    rec['window_trace'] = dict(canned, device=[
+        d for d in canned['device'] if d[1] != 'kernel'])
+    assert spec.reader('card_kernel_ms')(rec) is None
+
+
+class Event:
+    ''' what ``trace.device_activity`` reads of a profiler event '''
+
+    def __init__(self, name, cuda, start_us, dur_us):
+        from torch.autograd import DeviceType
+        self._name, self._start, self._dur = name, start_us, dur_us
+        self._type = DeviceType.CUDA if cuda else DeviceType.CPU
+
+    def name(self):
+        return self._name
+
+    def device_type(self):
+        return self._type
+
+    def start_ns(self):
+        return int(self._start * 1e3)
+
+    def duration_ns(self):
+        return int(self._dur * 1e3)
+
+
+def test_device_activity_from_the_profilers_events():
+    tr = trace.device_activity([
+        Event('cudaLaunchKernel', False, 5, 2),
+        Event('void cand_screen_kernel<4>()', True, 30, 40),
+        Event('Memcpy HtoD (Pageable -> Device)', True, 10, 5),
+        Event('Memset (Device)', True, 20, 1),
+        Event('score_step_kernel', True, 80, 10)])
+    assert tr['device'] == [
+        ('Memcpy HtoD (Pageable -> Device)', 'gpu_memcpy', 10.0, 15.0),
+        ('Memset (Device)', 'gpu_memset', 20.0, 21.0),
+        ('void cand_screen_kernel<4>()', 'kernel', 30.0, 70.0),
+        ('score_step_kernel', 'kernel', 80.0, 90.0)]
+    rec = record()
+    rec['window_trace'] = tr
+    assert spec.reader('card_kernel_ms')(rec) == pytest.approx(50 / 3 / 1e3)
+
+
+def test_only_an_untraced_window_with_a_device_metric_is_profiled():
+    bench = spec.load()
+    device = {m['name'] for m in bench['end_to_end']
+              if m['source'] == 'device_trace'}
+    assert device == {'card_kernel_ms'}
+    profiled = {w['name'] for w in bench['workloads']
+                if device & {m['name'] for m in
+                             spec.metrics(bench, w['name'], False)}}
+    assert profiled == {'mtbc_se101_e4.cov'}
+
+
 @pytest.mark.parametrize('name', ['cov_reads_per_s', 'cli_ms.cov',
-                                  'engine_ms.hit'])
+                                  'engine_ms.hit', 'wall_reads_per_s.card'])
 def test_window_readers_without_scans_read_nothing(name):
     rec = record()
     rec['scans'] = []

@@ -31,21 +31,26 @@ COLLECTED = [
                ('engine.wait', W, ns(20), ns(60)),
                ('reader.next', R, ns(15), ns(55)),
                ('engine.match', W, ns(60), ns(70)),
+               ('engine.copy', W, ns(61), ns(64)),
+               ('engine.copy', W, ns(66), ns(67)),
                ('engine.emit', W, ns(70), ns(80)),
                ('analyse.replay', W, ns(80), ns(90)),
                ('cli.analyse', M, ns(100), ns(105)),
                ('cli.write', M, ns(105), ns(120)),
                ('analyse.encode', M, ns(106), ns(110))],
      'counts': {'reader.sieve_ns': 30_000, 'reader.inflate_ns': 0,
-                'reader.records': 100, 'reader.survivors': 7}},
+                'reader.records': 100, 'reader.survivors': 7,
+                'scan.scored': 30}},
     {'spans': [('cli.load', M, ns(200), ns(204)),
                ('engine.bank', W, ns(210), ns(212)),
                ('engine.wait', W, ns(212), ns(250)),
                ('reader.next', R, ns(212), ns(230)),
                ('engine.match', W, ns(250), ns(256)),
+               ('engine.copy', W, ns(252), ns(254)),
                ('cli.write', M, ns(260), ns(265))],
      'counts': {'reader.sieve_ns': 50_000, 'reader.inflate_ns': 0,
-                'reader.records': 120, 'reader.survivors': 9}},
+                'reader.records': 120, 'reader.survivors': 9,
+                'scan.scored': 50}},
 ]
 
 
@@ -146,9 +151,16 @@ READERS = {
     'sieve_ms.cov': (30 + 50) / 2, 'sieve_ms.hit': (30 + 50) / 2,
     'inflate_ms.cov': 0.0,
     'load_ms.cov': (10 + 2 + 4) / 2, 'load_ms.hit': (10 + 2 + 4) / 2,
+    'read_ms.card': (40 + 18) / 2, 'load_ms.card': (10 + 2 + 4) / 2,
     'replay_ms.hit': 10 / 2, 'write_ms.hit': (15 + 5) / 2,
     'emit_ms.hit': 10 / 2,
+    'copy_ms.cov': (3 + 1 + 2) / 2,
+    # rows, not us: the reader's (30 + 50) / 2 rows, as the test divides
+    'scored_rows.cov': (30 + 50) / 2 * 1e3,
 }
+# what a reader reads where ``program`` names none of it
+UNNAMED = {'copy_ms.cov': ('engine.copy', None),
+           'scored_rows.cov': (None, 'scan.scored')}
 
 
 def test_every_program_metric_has_a_canned_reading():
@@ -172,10 +184,11 @@ def test_metric_readers_read_nothing_unrecorded(samples, name):
     assert read({'program': []}) is None
     # no sample holds the span or counter the metric reads
     key = name.split('.')[0]
-    gone = set(program.SPANS.get(key, ()))
+    span, counter = UNNAMED.get(name, (None, program.COUNTERS.get(key)))
+    gone = set(program.SPANS.get(key, ())) | {span}
     for p in samples:
         p['spans'] = [s for s in p['spans'] if s[0] not in gone]
-        p['counts'].pop(program.COUNTERS.get(key), None)
+        p['counts'].pop(counter, None)
     assert read({'program': samples}) is None
 
 

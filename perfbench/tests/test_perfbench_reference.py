@@ -1,6 +1,7 @@
 '''
-The plain reference on hand-made reads with a known result, and against
-the program's numpy scan on a generated sample.
+The plain reference on hand-made reads with a known result, against
+the program's numpy scan on a generated sample, its coverage fold against
+the per-hit loop it replaced, and its two matchers on an amplicon sample.
 '''
 
 import json
@@ -9,13 +10,18 @@ import os
 import numpy as np
 import pytest
 
-from perfbench.lib import check, generator, refengine, spec
+from perfbench.lib import check, generator, refengine, refexhaustive, spec
 from perfbench.reference import MTBC
+from test_perfbench_refexhaustive import on_target
 
 ROOT = spec.ROOT
 RNG = np.random.default_rng(7)
 TEMPLATE = ''.join(RNG.choice(list('ACGT'), 30))
 COMP = {'A': 'T', 'C': 'G', 'G': 'C', 'T': 'A'}
+GROUP = MTBC.Group(ROOT, 25)
+# the test panel: the MTBC windows of SNPs and regions (25 bases a side)
+# widened by 150 bases on both sides, merged where they meet
+TEST_PANEL = generator.panel_around(GROUP.region_spans(), 25 + 150)
 
 
 def rc(s):
@@ -65,7 +71,8 @@ def test_trim_takes_the_first_longest_run(tmp_path):
     assert rec.histogram[20] == 1 and rec.histogram[15] == 1
     assert rec.histogram[10] == 1 and rec.histogram[0] == 1
     assert list(rec.rl) == [40, 30]
-    assert rec.read(1, 0, 30) == reads[1][0][:30]
+    assert rec.reads(np.array([1, 0]), np.array([0, 5]),
+                     np.array([30, 3])) == [reads[1][0][:30], reads[0][0][5:8]]
 
 
 def test_modes_errors_and_strands(tmp_path):
@@ -156,3 +163,151 @@ def test_reference_equals_the_programs_numpy_scan(tmp_path, hits):
         got = json.load(fd)
     want = check.Expected(paths, config, group).result(hits)
     assert check.compare(got, want) == dict.fromkeys(check.FIELDS, 0)
+
+
+# --- the coverage fold against the loop it replaced ------------------------
+
+_COMPL = {'A': 'T', 'C': 'G', 'G': 'C', 'T': 'A', 'N': 'N'}
+
+
+def coverages_loop(rec, tpl, hits, windows, hit_order):
+    ''' ``refengine.coverages`` as a loop over every hit and every base
+        of it: the oracle of the numpy fold '''
+    names = list(windows)
+    nwin = len(names)
+    cov = {n: refengine.Coverage(w.plus, w.start, w.stop)
+           for n, w in windows.items()}
+    depth = [np.zeros(len(w.plus), np.int64) for w in windows.values()]
+    alt = []
+    for h, (r, t, d, length) in enumerate(hits.tolist()):
+        seq = tpl.seqs[t]
+        s = max(0, -d)
+        p = int(rec.pos[r]) + s
+        read = rec.arr[p:p + length].tobytes().decode('latin-1')
+        j0 = max(0, d)
+        w = t % nwin
+        plus = t < nwin
+        S = len(seq)
+        if plus:
+            depth[w][j0:j0 + length] += 1
+        else:
+            depth[w][S - j0 - length:S - j0] += 1
+        for i, (x, y) in enumerate(zip(read, seq[j0:j0 + length])):
+            if x != y:
+                j = j0 + i
+                alt.append((h, i, w, j if plus else S - 1 - j,
+                            x if plus else _COMPL.get(x, x)))
+    for w, n in enumerate(names):
+        cov[n].coverage = [int(x) for x in depth[w]]
+    if not hit_order:
+        alt.sort(key=lambda a: (a[2], a[3]))
+    for _, _, w, j, base in alt:
+        c = cov[names[w]]
+        if j not in c.mutations:
+            c.mutations[j] = {}
+            c.mutation_order.append(j)
+        c.mutations[j][base] = c.mutations[j].get(base, 0) + 1
+    return cov
+
+
+def panel_config(pairs):
+    ''' the test panel sampled as plain 2 x 150-bp pairs, all on target '''
+    config = spec.config('mtbc_pe150_gz')
+    config['reads'].update(compression='none', count=pairs,
+                           panel=TEST_PANEL)
+    return config
+
+
+@pytest.fixture(scope='module')
+def samples(tmp_path_factory):
+    ''' the reference's matches of a whole-genome sample joined by reads
+        cut from the templates in every mode (with N and trimmed tails),
+        and of a test-panel sample '''
+    tmp = tmp_path_factory.mktemp('fold')
+    genome = generator.genome_codes(os.path.join(ROOT, MTBC.GENOME))
+    config = spec.config('mtbc_se101')
+    config['reads']['count'] = 20000
+    paths, _ = generator.make_sample(genome, GROUP, config, 2 ** 32 + 9, 0,
+                                     str(tmp), threads=2)
+    wgs = refengine.read_stream(paths) + on_target(
+        1500, np.random.default_rng(11))
+    paths, _ = generator.make_sample(genome, GROUP, panel_config(3000),
+                                     2 ** 32 + 9, 1, str(tmp), threads=2)
+    panel = refengine.read_stream(paths)
+    tpl = refengine.Templates(GROUP.sequences(), 2, 25, 25)
+    out = {}
+    for name, buf in (('wgs', wgs), ('panel', panel)):
+        rec = refengine.Records(buf, 33 + 13, 25)
+        out[name] = rec, tpl, refengine.emit(
+            rec, tpl, refengine.match(rec, tpl, threads=2))
+    return out
+
+
+def _state(cov):
+    ''' a window's whole state: bases in the order each position met them '''
+    return (cov.coverage, [(j, list(m.items()))
+                           for j, m in cov.mutations.items()],
+            cov.mutation_order, cov.serialize())
+
+
+@pytest.mark.parametrize('hit_order', [False, True], ids=['by-position',
+                                                          'hit-order'])
+@pytest.mark.parametrize('sample', ['wgs', 'panel'])
+def test_the_fold_equals_the_loop(samples, sample, hit_order):
+    rec, tpl, hits = samples[sample]
+    assert len(hits) > 1000
+    want = coverages_loop(rec, tpl, hits, GROUP.windows, hit_order)
+    assert sum(len(c.mutations) for c in want.values()) > 100
+    for chunk in (1 << 15, 97):
+        got = refengine.coverages(rec, tpl, hits, GROUP.windows, hit_order,
+                                  chunk=chunk)
+        assert list(got) == list(want)
+        for name in want:
+            assert _state(got[name]) == _state(want[name]), name
+
+
+def test_the_fold_of_no_hit(samples):
+    rec, tpl, hits = samples['wgs']
+    got = refengine.coverages(rec, tpl, hits[:0], GROUP.windows, True)
+    want = coverages_loop(rec, tpl, hits[:0], GROUP.windows, True)
+    assert [_state(c) for c in got.values()] == \
+        [_state(c) for c in want.values()]
+
+
+def test_the_fold_at_the_end_of_the_stream(tmp_path):
+    ''' the last read's hit is shorter than the longest hit and ends the
+        stream: its row reaches past the stream's end, masked '''
+    t = noise(80)
+    reads = [(flip(t, [7]), 'I' * 80),
+             (rc(flip(t[30:56], [3])), 'I' * 26)]
+    rec, tpl, trip, hits = scan(tmp_path, reads, [t, rc(t)])
+    assert len(hits) == 2 and hits[-1, 0] == 1
+
+    class W:
+        def __init__(self, plus):
+            self.plus, self.start, self.stop = plus, 0, len(plus)
+
+    for hit_order in (False, True):
+        got = refengine.coverages(rec, tpl, hits, {'t': W(t)}, hit_order)
+        want = coverages_loop(rec, tpl, hits, {'t': W(t)}, hit_order)
+        assert _state(got['t']) == _state(want['t'])
+    assert got['t'].mutations == {7: {flip(t, [7])[7]: 1},
+                                  33: {flip(t[30:56], [3])[3]: 1}}
+
+
+def test_both_matchers_give_one_result_on_a_panel_sample(tmp_path):
+    ''' ``check.Expected`` on the CPU (the seeded matcher at two
+        mismatches) and with the brute-force one a card takes '''
+    genome = generator.genome_codes(os.path.join(ROOT, MTBC.GENOME))
+    config = panel_config(800)
+    paths, _ = generator.make_sample(genome, GROUP, config, 2 ** 35 + 1, 0,
+                                     str(tmp_path), threads=2)
+    seeded = check.Expected(paths, config, GROUP)
+    brute = check.Expected(paths, config, GROUP)
+    brute.trip = refexhaustive.match(brute.rec, brute.tpl, chunk=256)
+    np.testing.assert_array_equal(brute.trip, seeded.trip)
+    for hits in (False, True):
+        want, got = seeded.result(hits), brute.result(hits)
+        assert got == want
+        assert check.compare(got, want) == dict.fromkeys(check.FIELDS, 0)
+    assert len(want['hits']) > 1000

@@ -106,3 +106,29 @@ def test_expected_takes_the_seeds_from_eight_bases(tmp_path, monkeypatch,
         monkeypatch.setattr(module, 'match', spy)
     check.Expected(paths, config, GROUP)
     assert called == [matcher]
+
+
+@pytest.mark.parametrize('errors', [2, 4])
+def test_expected_takes_the_brute_force_matcher_on_a_card(tmp_path,
+                                                          monkeypatch,
+                                                          errors):
+    ''' on a card every sample is matched by brute force, whatever the
+        seed's length: its time does not grow with the reads on target '''
+    config = spec.config('mtbc_se101')
+    config['scan']['errors'] = errors
+    config['reads']['count'] = 200
+    genome = generator.genome_codes(os.path.join(ROOT, MTBC.GENOME))
+    paths, _ = generator.make_sample(genome, GROUP, config, 9, 0,
+                                     str(tmp_path))
+    called = []
+
+    def seeded(*args, **kw):
+        raise AssertionError('the seeded matcher on a card')
+
+    def brute(rec, tpl, device='cpu', chunk=None):
+        called.append(device)
+        return np.zeros((0, 4), np.int64)
+    monkeypatch.setattr(refengine, 'match', seeded)
+    monkeypatch.setattr(refexhaustive, 'match', brute)
+    check.Expected(paths, config, GROUP, 'cuda')
+    assert called == ['cuda']
